@@ -8,8 +8,9 @@ full width, bf16, random weights from ``--seed``; 16 requests with
 chunks), lets ``--warmup`` steps pass, then records ``--steps`` steps
 under ``torch.profiler`` (CPU and CUDA activity) and prints one JSON line:
 wall time of the window, device busy share (sum of device time of all
-kernels / wall), host operator calls and stream synchronisations per
-step, and the top operators by host self time and by device time.  Needs
+kernels / wall), host operator calls, kernel launches and stream
+synchronisations per step, and the top operators by host self time and
+by device time.  Needs
 a CUDA card; exits non-zero without one.
 """
 
@@ -22,6 +23,32 @@ import time
 
 import numpy as np
 import torch
+
+
+def summary(prof, wall_ms: float, steps: int) -> dict:
+    """Wall time, device busy share, host operator calls, kernel launches
+    and stream synchronisations per step, and the top operators by host
+    self time and kernels by device time, of one profiled window."""
+    ka = prof.key_averages()
+    kernels = [e for e in ka if e.self_device_time_total > 0
+               and not e.key.startswith("aten::")]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    host_ops = sum(e.count for e in ka if e.key.startswith("aten::"))
+    syncs = sum(e.count for e in ka if "Synchronize" in e.key)
+
+    def top(events, attr, n=12):
+        rows = sorted(events, key=lambda e: getattr(e, attr), reverse=True)
+        return [{"name": e.key[:80], "calls": e.count,
+                 "ms": getattr(e, attr) / 1e3} for e in rows[:n]]
+    return {"wall_ms": wall_ms, "ms_per_step": wall_ms / steps,
+            "device_busy_ms": device_ms,
+            "device_busy_share": device_ms / wall_ms,
+            "host_ops_per_step": host_ops / steps,
+            "kernels_per_step": sum(e.count for e in kernels) / steps,
+            "syncs_per_step": syncs / steps,
+            "top_host_self": top([e for e in ka if e.key.startswith("aten::")
+                                  or "cuda" in e.key], "self_cpu_time_total"),
+            "top_device": top(kernels, "self_device_time_total")}
 
 
 def main(argv=None) -> int:
@@ -60,28 +87,9 @@ def main(argv=None) -> int:
             b.step(now)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    ka = prof.key_averages()
-    kernels = [e for e in ka if e.self_device_time_total > 0
-               and not e.key.startswith("aten::")]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    host_ops = sum(e.count for e in ka if e.key.startswith("aten::"))
-    syncs = sum(e.count for e in ka if "Synchronize" in e.key)
-
-    def top(events, attr, n=12):
-        rows = sorted(events, key=lambda e: getattr(e, attr), reverse=True)
-        return [{"name": e.key[:80], "calls": e.count,
-                 "ms": getattr(e, attr) / 1e3} for e in rows[:n]]
     out = {"bench": "torch_serve_profile", "arch": cfg.name,
            "dtype": cfg.dtype, "device": torch.cuda.get_device_name(0),
-           "steps": args.steps, "wall_ms": wall_ms,
-           "ms_per_step": wall_ms / args.steps,
-           "device_busy_ms": device_ms,
-           "device_busy_share": device_ms / wall_ms,
-           "host_ops_per_step": host_ops / args.steps,
-           "syncs_per_step": syncs / args.steps,
-           "top_host_self": top([e for e in ka if e.key.startswith("aten::")
-                                 or "cuda" in e.key], "self_cpu_time_total"),
-           "top_device": top(kernels, "self_device_time_total")}
+           "steps": args.steps, **summary(prof, wall_ms, args.steps)}
     print(json.dumps(out))
     return 0
 

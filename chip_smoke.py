@@ -6,7 +6,10 @@
 Builds the hand-written kernels from ``src/repro_torch/csrc`` (one
 ``nvcc`` per source, all started together), then drives the port with
 random weights made from a seed, at the full width of
-granite-moe-1b-a400m (24 layers, d_model 1024, 32 experts top-8):
+granite-moe-1b-a400m (24 layers, d_model 1024, 32 experts top-8),
+falcon-mamba-7b (64 layers, d_model 4096, d_inner 8192, state 16) and
+hymba-1.5b (32 layers, d_model 1600, 25 heads / 5 kv heads, window 1024,
+d_inner 3200):
 
 1. ``card``: the card's name and power limit from ``nvidia-smi``.
 2. ``moe_gmm``: the kernel against its plain PyTorch version at the
@@ -15,7 +18,9 @@ granite-moe-1b-a400m (24 layers, d_model 1024, 32 experts top-8):
    version and a ``torch.bmm`` chain, and the least time the card could
    take for the same work.
 3. ``flash_attention``: the same at (B=1, S=2048, H=16, KV=8, dh=64),
-   causal and with a 256 window, bf16 and fp32 (library: SDPA).
+   causal and with a 256 window, bf16 and fp32, and at hymba's shape
+   (H=25, KV=5, window 1024) for S=256 fp32 and S=2048 bf16 (library:
+   SDPA).
 4. ``forward`` (fp32, TF32 off): the whole-sequence forward's argmax on
    a 256-token prompt equals the prefill + decode argmax; the dense
    qwen2.5 SMOKE model's chunked prefill equals its whole prefill
@@ -25,11 +30,26 @@ granite-moe-1b-a400m (24 layers, d_model 1024, 32 experts top-8):
    prompts, 32-token chunks and 32 new tokens each on 8 slots; every
    request must finish and ``moe_gmm`` must launch 24 times per prefill
    round and per decode step.
+6. ``ssm_scan``: the kernel against its plain version (fp32, 1e-4) at
+   falcon's per-chunk launch (B=1, L=256, Di=8192, N=16) from a zero and
+   a carried state (``h_out`` compared too), a whole 2048-token layer,
+   and hymba's ragged width (B=2, L=256, Di=3200); no single PyTorch call
+   computes the recurrence, so there is no library time.
+7. ``ssm_forward`` (fp32, TF32 off), falcon-mamba-7b at full depth, then
+   hymba-1.5b: ``forward(last_only)`` over a 256-token prompt has the
+   argmax of the same tokens fed one by one through ``decode_step``;
+   ``ssm_scan`` launches once per layer (64 / 32) and, for hymba,
+   ``flash_attention`` too (32).
+8. ``ssm_bf16``: falcon-mamba-7b in bf16, one timed 2048-token forward
+   and 32 timed greedy decode steps after a 16-token prompt, finite
+   logits, peak device memory.
 
 Each main-path run (the forward of phase 4 for ``flash_attention``; the
 serve CLI and the batcher run of phase 5 for ``moe_gmm``, whose CLI count
-goes into the ``kernels`` line) zeroes the launch counters just before it
-and reads them just after; launches made to compare a kernel with its
+goes into the ``kernels`` line; the falcon-mamba-7b forward of phase 7
+for ``ssm_scan``, and the hymba-1.5b forward for both ``ssm_scan`` and
+``flash_attention``) zeroes the launch counters just before it and reads
+them just after; launches made to compare a kernel with its
 plain version are not counted.  Every phase prints one JSON line
 and raises on failure.  The second-to-last line is the ``kernels`` JSON
 and the last line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -164,17 +184,23 @@ def attention_flops(S: int, T: int, B: int, H: int, dh: int, causal: bool,
     return 4.0 * dh * B * H * pairs
 
 
-def phase_flash(torch, cfg) -> list:
+def phase_flash(torch, cfg, hybrid) -> list:
     from repro_torch.kernels.flash_attention import flash_attention as FA
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
-    B, H, KV, dh = 1, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    B = 1
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     rows = []
-    # S = 256 fp32 causal: the forward of phase 4; S = 2048: a long prompt
-    for S, dtype, window in ((256, "float32", 0), (2048, "bfloat16", 0),
-                             (2048, "bfloat16", 256), (2048, "float32", 0),
-                             (2048, "float32", 256)):
+    # granite: S = 256 fp32 causal is the forward of phase 4, S = 2048 a
+    # long prompt; hymba (G = 5, window 1024): S = 256 fp32 is the forward
+    # of phase 7
+    hw = hybrid.sliding_window
+    for c, S, dtype, window in (
+            (cfg, 256, "float32", 0), (cfg, 2048, "bfloat16", 0),
+            (cfg, 2048, "bfloat16", 256), (cfg, 2048, "float32", 0),
+            (cfg, 2048, "float32", 256), (hybrid, 256, "float32", hw),
+            (hybrid, 2048, "bfloat16", hw)):
+        H, KV, dh = c.n_heads, c.n_kv_heads, c.head_dim
         dt = getattr(torch, dtype)
         q = torch.randn(B, S, H, dh, generator=gen, device="cuda").to(dt)
         k = torch.randn(B, S, KV, dh, generator=gen, device="cuda").to(dt)
@@ -200,8 +226,8 @@ def phase_flash(torch, cfg) -> list:
             * q.element_size()
         b_ms, b_by = bound(nbytes, attention_flops(
             S, S, B, H, dh, True, window), dtype)
-        row = {"phase": "flash_attention", "B": B, "S": S, "H": H,
-               "KV": KV, "dh": dh, "causal": True, "window": window,
+        row = {"phase": "flash_attention", "arch": c.name, "B": B, "S": S,
+               "H": H, "KV": KV, "dh": dh, "causal": True, "window": window,
                "dtype": dtype, "max_abs_err": err, "atol": tol,
                "rtol": tol,
                "kernel_ms": time_ms(torch, lambda: FA.flash_attention(
@@ -413,6 +439,182 @@ def phase_serve(torch, cfg, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 6: ssm_scan
+# ---------------------------------------------------------------------------
+
+
+def phase_ssm_scan(torch) -> list:
+    from repro_torch.kernels.ssm_scan import ssm_scan as SS
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    tol = 1e-4  # the reference's test_ssm_scan_sweep tolerance
+    rows = []
+    # falcon-mamba-7b's launch per 256-token chunk, from a zero and from a
+    # carried state; a whole 2048-token layer; hymba-1.5b's ragged Di
+    for what, B, L, Di, N, with_h0 in (
+            ("falcon chunk", 1, 256, 8192, 16, False),
+            ("falcon chunk, carried state", 1, 256, 8192, 16, True),
+            ("falcon 2048-token layer", 1, 2048, 8192, 16, False),
+            ("hymba chunk", 2, 256, 3200, 16, False)):
+        dA = torch.rand(B, L, Di, N, generator=gen, device="cuda") * 0.5 + 0.5
+        dBx = torch.randn(B, L, Di, N, generator=gen, device="cuda") * 0.1
+        C = torch.randn(B, L, N, generator=gen, device="cuda")
+        h0 = torch.randn(B, Di, N, generator=gen, device="cuda") \
+            if with_h0 else None
+        y, h = SS.ssm_scan(dA, dBx, C, h0)
+        torch.cuda.synchronize()
+        y_ref, h_ref = ssm_scan_ref(dA, dBx, C, h0)
+        err = max(max_err(torch, y, y_ref, tol, tol, f"ssm_scan {what} y"),
+                  max_err(torch, h, h_ref, tol, tol, f"ssm_scan {what} h"))
+        # each input read once, y and the last state written once
+        nbytes = 4 * (2 * B * L * Di * N + B * L * N + B * L * Di
+                      + B * Di * N * (2 if with_h0 else 1))
+        b_ms, b_by = bound(nbytes, 4.0 * B * L * Di * N, "float32")
+        row = {"phase": "ssm_scan", "shape": what, "B": B, "L": L, "Di": Di,
+               "N": N, "h0": with_h0, "dtype": "float32",
+               "max_abs_err": err, "atol": tol, "rtol": tol,
+               "kernel_ms": time_ms(torch, lambda: SS.ssm_scan(
+                   dA, dBx, C, h0), 20),
+               "plain_ms": time_ms(torch, lambda: ssm_scan_ref(
+                   dA, dBx, C, h0), 2 if L > 256 else 3, warmup=1),
+               # no single PyTorch call computes this recurrence
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        emit(row)
+        rows.append(row)
+        del dA, dBx, C, h0, y, h, y_ref, h_ref
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: ssm / hybrid forward vs token-by-token decode (fp32)
+# ---------------------------------------------------------------------------
+
+
+def phase_ssm_forward(torch, cfg) -> dict:
+    """Full width and depth, fp32, TF32 off: ``forward(last_only)`` over a
+    256-token prompt (one ``ssm_scan`` launch per layer at ssm_chunk 256)
+    against the same tokens fed one at a time through ``decode_step``."""
+    from repro_torch.device import parity_mode
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.ssm_scan import ssm_scan as SS
+    from repro_torch.models import model as TM
+
+    parity_mode(deterministic=False)
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = TM.init_params(c32, gen, device="cuda")
+    prompt = torch.randint(0, c32.vocab, (1, 256), generator=gen,
+                           device="cuda")
+    SS.launches = FA.launches = 0
+    fwd = TM.forward(params, c32, {"tokens": prompt}, ssm_chunk=256,
+                     last_only=True)[:, 0]
+    torch.cuda.synchronize()
+    launches = {"ssm_scan": SS.launches, "flash_attention": FA.launches}
+    expect = {"ssm_scan": cfg.n_layers,
+              "flash_attention": cfg.n_layers if cfg.family == "hybrid"
+              else 0}
+    cache = TM.init_cache(c32, 1, 256, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(256):
+        dec, _ = TM.decode_step(params, c32, cache, {
+            "tokens": prompt[:, t:t + 1],
+            "cache_index": torch.tensor(t, device="cuda")})
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    V = c32.vocab
+    a_fwd = int(fwd[0, :V].argmax())
+    a_dec = int(dec[0, :V].argmax())
+    top2 = torch.topk(fwd[0, :V], 2).values
+    row = {"phase": "ssm_forward", "arch": cfg.name, "dtype": "float32",
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "d_inner": cfg.d_inner, "params": sum(
+               t.numel() for t in _leaves(params)),
+           "prompt": 256, "argmax_forward": a_fwd, "argmax_decode": a_dec,
+           "logits_max_abs_diff": float((fwd - dec).abs().max()),
+           "top2_margin": float(top2[0] - top2[1]), "decode_s": decode_s,
+           "launches": launches, "expected_launches": expect}
+    emit(row)
+    del params, cache
+    torch.cuda.empty_cache()
+    if not (bool(torch.isfinite(fwd).all()) and bool(torch.isfinite(dec).all())):
+        raise AssertionError(f"{cfg.name}: non-finite logits")
+    if a_fwd != a_dec:
+        raise AssertionError(f"{cfg.name}: forward argmax != decode argmax")
+    if launches != expect:
+        raise AssertionError(f"{cfg.name}: launches {launches} != {expect}")
+    return row
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: falcon-mamba-7b in bf16, timed
+# ---------------------------------------------------------------------------
+
+
+def phase_ssm_bf16(torch, cfg, card: str) -> dict:
+    """One 2048-token forward and 32 greedy decode steps after a 16-token
+    prompt, host clock around synchronised work."""
+    from repro_torch.kernels.ssm_scan import ssm_scan as SS
+    from repro_torch.models import model as TM
+
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = TM.init_params(cfg, gen, device="cuda")
+    toks = torch.randint(0, cfg.vocab, (1, 2048), generator=gen,
+                         device="cuda")
+    TM.forward(params, cfg, {"tokens": toks}, last_only=True)  # warm-up
+    torch.cuda.synchronize()
+    SS.launches = 0
+    t0 = time.perf_counter()
+    fwd = TM.forward(params, cfg, {"tokens": toks}, last_only=True)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    fwd_launches = SS.launches
+    cache = TM.init_cache(cfg, 1, 64, device="cuda")
+    for t in range(16):
+        logits, _ = TM.decode_step(params, cfg, cache, {
+            "tokens": toks[:, t:t + 1],
+            "cache_index": torch.tensor(t, device="cuda")})
+    nxt = logits[:, :cfg.vocab].argmax(-1, keepdim=True)
+    finite = bool(torch.isfinite(fwd).all()) and \
+        bool(torch.isfinite(logits).all())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(16, 48):
+        logits, _ = TM.decode_step(params, cfg, cache, {
+            "tokens": nxt, "cache_index": torch.tensor(t, device="cuda")})
+        nxt = logits[:, :cfg.vocab].argmax(-1, keepdim=True)
+        finite = finite and bool(torch.isfinite(logits).all())
+    torch.cuda.synchronize()
+    dec_ms = (time.perf_counter() - t0) * 1e3 / 32
+    row = {"phase": "ssm_bf16", "arch": cfg.name, "dtype": cfg.dtype,
+           "card": card, "forward_tokens": 2048, "forward_ms": fwd_ms,
+           "forward_tokens_per_s": 2048 / fwd_ms * 1e3,
+           "forward_ssm_scan_launches": fwd_launches,
+           "decode_steps": 32, "decode_ms_per_token": dec_ms,
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 1e9,
+           "finite": finite}
+    emit(row)
+    del params, cache
+    torch.cuda.empty_cache()
+    if not finite:
+        raise AssertionError("ssm_bf16: non-finite logits")
+    if fwd_launches != cfg.n_layers * 2048 // 256:
+        raise AssertionError(f"ssm_bf16: {fwd_launches} ssm_scan launches")
+    return row
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -450,14 +652,20 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config("granite-moe-1b-a400m")
+    falcon, hymba = get_config("falcon-mamba-7b"), get_config("hymba-1.5b")
     moe_rows = phase_moe_gmm(torch, cfg)
-    flash_rows = phase_flash(torch, cfg)
+    flash_rows = phase_flash(torch, cfg, hymba)
     fwd = phase_forward(torch, cfg)
     srv = phase_serve(torch, cfg, smi)
+    ssm_rows = phase_ssm_scan(torch)
+    ssm_fwd = phase_ssm_forward(torch, falcon)
+    phase_ssm_forward(torch, hymba)
+    phase_ssm_bf16(torch, falcon, smi)
 
     moe_main = next(r for r in moe_rows
                     if r["C"] == 8 and r["dtype"] == "bfloat16")
     flash_main = flash_rows[0]
+    ssm_main = ssm_rows[0]
     kernels = [
         {"name": "moe_gmm", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_gmm.cu",
@@ -478,6 +686,15 @@ def main() -> int:
          "bound_ms": flash_main["bound_ms"],
          "bound_by": flash_main["bound_by"],
          "library_ms": flash_main["library_ms"]},
+        {"name": "ssm_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssm_scan.cu",
+         "replaces": "src/repro/kernels/ssm_scan/ssm_scan.py:56",
+         "launches": ssm_fwd["launches"]["ssm_scan"],
+         "shape": "B=1 L=256 Di=8192 N=16 fp32 (falcon-mamba-7b forward, "
+                  "one launch per layer)",
+         "max_abs_err": ssm_main["max_abs_err"], "ms": ssm_main["kernel_ms"],
+         "plain_ms": ssm_main["plain_ms"], "bound_ms": ssm_main["bound_ms"],
+         "bound_by": ssm_main["bound_by"], "library_ms": None},
     ]
     for k in kernels:
         if k["launches"] <= 0:

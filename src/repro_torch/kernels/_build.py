@@ -39,6 +39,8 @@ SIGNATURES = {
     "flash_attention": ("flash_attention_launch",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _P]),
+    "ssm_scan": ("ssm_scan_launch",
+                 [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -1,8 +1,10 @@
-"""Pre-norm residual transformer blocks for the dense and MoE families.
+"""Pre-norm residual blocks for the dense, MoE, SSM and hybrid families.
 
-Port of ``repro/models/blocks.py`` for the ``dense`` and ``moe`` kinds.
-The other kinds (ssm, hybrid, encdec, vlm) are not ported yet and raise,
-naming their ROADMAP item.  Caches are updated IN PLACE.
+Port of ``repro/models/blocks.py`` for the ``dense``, ``moe``, ``ssm``
+(mamba only, no FFN) and ``hybrid`` (Hymba: attention and mamba heads in
+parallel on the same normed input, mean-fused) kinds.  The encdec and vlm
+kinds are not ported yet and raise, naming their ROADMAP item.  Caches
+are updated IN PLACE.
 """
 
 from __future__ import annotations
@@ -11,23 +13,29 @@ import torch
 
 from . import layers as L
 from . import moe as M
+from . import ssm as S
 
-PORTED_KINDS = ("dense", "moe")
+PORTED_KINDS = ("dense", "moe", "ssm", "hybrid")
 
 
 def check_kind(kind: str) -> None:
     if kind not in PORTED_KINDS:
         raise NotImplementedError(
             f"block kind {kind!r} is not ported yet (ROADMAP Queue 1 "
-            f"items 9-10: ssm/hybrid, encdec/vlm)")
+            f"item 10: encdec/vlm)")
 
 
 def layer_init(gen: torch.Generator, cfg, dtype, kind: str) -> dict:
     check_kind(kind)
     d, nk = cfg.d_model, cfg.norm
-    out = {"ln1": L.norm_init(gen, d, nk, dtype),
-           "attn": L.attn_init(gen, cfg, dtype),
-           "ln2": L.norm_init(gen, d, nk, dtype)}
+    out = {"ln1": L.norm_init(gen, d, nk, dtype)}
+    if kind != "ssm":
+        out["attn"] = L.attn_init(gen, cfg, dtype)
+    if kind in ("ssm", "hybrid"):
+        out["ssm"] = S.ssm_init(gen, cfg, dtype)
+        if kind == "ssm":
+            return out  # the mamba block has no FFN (falcon-mamba d_ff=0)
+    out["ln2"] = L.norm_init(gen, d, nk, dtype)
     if kind == "moe":
         out["moe"] = M.moe_init(gen, cfg, dtype)
     else:
@@ -43,20 +51,26 @@ def _ffn(p: dict, cfg, h: torch.Tensor, kind: str) -> torch.Tensor:
 
 def layer_apply(p: dict, cfg, x: torch.Tensor, kind: str, *,
                 causal: bool = True, schedule: str = "masked",
-                q_chunk: int = 1024, k_chunk: int = 1024) -> torch.Tensor:
+                q_chunk: int = 1024, k_chunk: int = 1024,
+                ssm_chunk: int = 256) -> torch.Tensor:
     """One block forward (whole sequence)."""
     check_kind(kind)
     h = L.norm_apply(p["ln1"], x, cfg.norm)
-    x = x + L.attn_apply(p["attn"], cfg, h, causal=causal,
-                         schedule=schedule, q_chunk=q_chunk, k_chunk=k_chunk)
+    if kind == "ssm":
+        return x + S.ssm_apply(p["ssm"], cfg, h, chunk=ssm_chunk)
+    a = L.attn_apply(p["attn"], cfg, h, causal=causal, schedule=schedule,
+                     q_chunk=q_chunk, k_chunk=k_chunk)
+    if kind == "hybrid":
+        a = (a + S.ssm_apply(p["ssm"], cfg, h, chunk=ssm_chunk)) * 0.5
+    x = x + a
     h = L.norm_apply(p["ln2"], x, cfg.norm)
     return x + _ffn(p, cfg, h, kind)
 
 
 def layer_decode_apply(p: dict, cfg, x: torch.Tensor, cache: dict,
                        cache_index, kind: str):
-    """One block, one token; ``cache`` = {"k", "v"} of this layer,
-    updated IN PLACE.  Returns ``(x, cache)``.
+    """One block, one token; ``cache`` = this layer's {"k", "v"} and/or
+    {"conv", "h"}, updated IN PLACE.  Returns ``(x, cache)``.
 
     ``cache_index`` is a scalar or a per-row ``(B,)`` vector (each decode
     slot at its own position).  A sliding-window cache is a ring buffer:
@@ -64,6 +78,9 @@ def layer_decode_apply(p: dict, cfg, x: torch.Tensor, cache: dict,
     check_kind(kind)
     B = x.shape[0]
     h = L.norm_apply(p["ln1"], x, cfg.norm)
+    if kind == "ssm":
+        y, _ = S.ssm_decode_apply(p["ssm"], cfg, h, cache)
+        return x + y, cache
     T = cache["k"].shape[1]
     ci = L._per_row(cache_index, B, x.device)
     idx = torch.remainder(ci, T) if cfg.sliding_window > 0 else ci
@@ -78,8 +95,12 @@ def layer_decode_apply(p: dict, cfg, x: torch.Tensor, cache: dict,
     kc = L.kv_cache_update(cache["k"], k, idx)
     vc = L.kv_cache_update(cache["v"], v, idx)
     valid = torch.clamp(ci + 1, max=T)
-    a = L.decode_attention(q, kc, vc, valid)
-    x = x + L.dense_apply(pa["wo"], a.reshape(B, 1, -1))
+    a = L.dense_apply(pa["wo"],
+                      L.decode_attention(q, kc, vc, valid).reshape(B, 1, -1))
+    if kind == "hybrid":
+        y, _ = S.ssm_decode_apply(p["ssm"], cfg, h, cache)
+        a = (a + y) * 0.5
+    x = x + a
     h = L.norm_apply(p["ln2"], x, cfg.norm)
     return x + _ffn(p, cfg, h, kind), cache
 
@@ -88,7 +109,7 @@ def layer_prefill_apply(p: dict, cfg, x: torch.Tensor, cache: dict,
                         cache_index, count, kind: str):
     """One block over a ``(B, C)`` token span (chunked prefill); the
     layer's cache is updated IN PLACE.  Returns ``(x, cache)``."""
-    if kind not in PORTED_KINDS:
+    if kind not in ("dense", "moe"):
         raise NotImplementedError(
             f"span prefill is only defined for dense/moe blocks, "
             f"not kind={kind!r}")

@@ -1,14 +1,15 @@
-"""Model: init / forward / loss / prefill / decode for the dense and MoE
-families.
+"""Model: init / forward / loss / prefill / decode for the dense, MoE,
+SSM and hybrid families.
 
 Port of ``repro/models/model.py``.  Parameters are nested dicts of
 tensors in the reference's layout: one stack ``params["layers"]`` whose
 leaves carry a leading ``(L,)`` layer dim, so weights bridged from the
 reference drop straight in.  The layer scan becomes a Python loop over
-that dim; caches are ``cache["layers"] = {"k", "v"}`` of shape
-``(L, B, T, KV, dh)`` and :func:`decode_step` / :func:`prefill_step`
-update them IN PLACE (each layer writes through a view of its slice).
-Other families raise and name their ROADMAP item.
+that dim; caches are ``cache["layers"]``, holding ``{"k", "v"}`` of shape
+``(L, B, T, KV, dh)`` for attention and ``{"conv", "h"}`` for the mamba
+heads, and :func:`decode_step` / :func:`prefill_step` update them IN
+PLACE (each layer writes through a view of its slice).  The encdec and
+vlm families raise and name their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,10 +30,15 @@ def _plan(cfg: ModelConfig):
         return [("layers", "dense", cfg.n_layers, 0)]
     if cfg.family == "moe":
         return [("layers", "moe", cfg.n_layers, 0)]
-    item = {"ssm": "9", "hybrid": "9", "encdec": "10", "vlm": "10"}
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item "
-        f"{item.get(cfg.family, '?')})")
+    if cfg.family == "ssm":
+        return [("layers", "ssm", cfg.n_layers, 0)]
+    if cfg.family == "hybrid":
+        return [("layers", "hybrid", cfg.n_layers, 0)]
+    if cfg.family in ("encdec", "vlm"):
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 "
+            f"item 10)")
+    raise ValueError(cfg.family)
 
 
 def _layer(tree: dict, i: int) -> dict:
@@ -41,10 +47,28 @@ def _layer(tree: dict, i: int) -> dict:
             for k, v in tree.items()}
 
 
-def _stack(trees: list) -> dict:
-    first = trees[0]
-    return {k: _stack([t[k] for t in trees]) if isinstance(first[k], dict)
-            else torch.stack([t[k] for t in trees]) for k in first}
+def _stacked_init(make, n: int) -> dict:
+    """Stack ``n`` trees from ``make()`` along a new leading dim, filling
+    preallocated stacks one layer at a time (peak memory: the stack plus
+    one layer, which lets falcon-mamba-7b in fp32 fit on one card)."""
+    first = make()
+
+    def alloc(t):
+        return {k: alloc(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t.new_empty((n,) + tuple(t.shape))
+
+    def fill(dst, src, i):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                fill(dst[k], v, i)
+            else:
+                dst[k][i].copy_(v)
+    out = alloc(first)
+    fill(out, first, 0)
+    del first
+    for i in range(1, n):
+        fill(out, make(), i)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -56,8 +80,9 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device: Optional[Union[str, torch.device]] = None) -> dict:
     """Random weights with the reference's distributions (normal embed
     ×0.02, lm_head ×d^-0.5, weights ×fan_in^-0.5, unit norm scales, fp32
-    router), drawn from ``generator`` on ``device`` (``None`` = the card;
-    a fresh generator seeded 0 when none is given).  Used where the
+    router, fp32 ``A_log = log(1..N)`` and ``D = 1``), drawn from
+    ``generator`` on ``device`` (``None`` = the card; a fresh generator
+    seeded 0 when none is given).  Used where the
     reference cannot run, e.g. full-width weights on the card; parity
     tests bridge the reference's own weights instead."""
     dev = resolve_device(device)
@@ -74,8 +99,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         out["lm_head"] = L._norm_init(gen, (cfg.d_model, cfg.padded_vocab),
                                       cfg.d_model ** -0.5, dt)
     for name, kind, n, _ in _plan(cfg):
-        out[name] = _stack([B.layer_init(gen, cfg, dt, kind)
-                            for _ in range(n)])
+        out[name] = _stacked_init(lambda: B.layer_init(gen, cfg, dt, kind),
+                                  n)
     return out
 
 
@@ -97,19 +122,22 @@ def _n_layers(stack: dict) -> int:
 
 def forward(params: dict, cfg: ModelConfig, batch: dict, *,
             schedule: str = "masked", q_chunk: int = 1024,
-            k_chunk: int = 1024, remat: bool = True,
+            k_chunk: int = 1024, ssm_chunk: int = 256, remat: bool = True,
             last_only: bool = False) -> torch.Tensor:
-    """Logits for (B, S) tokens.  Self-attention runs the flash-attention
-    kernel on CUDA tensors.  ``last_only`` slices to the final position
-    before the lm_head matmul.  ``schedule``/``q_chunk``/``k_chunk``/
-    ``remat`` are accepted for signature parity and have no effect (the
-    port runs forward only, without autodiff rematerialisation)."""
+    """Logits for (B, S) tokens.  On CUDA tensors self-attention runs the
+    flash-attention kernel and every mamba head the selective-scan kernel,
+    one launch per ``ssm_chunk`` tokens (S must be a multiple of it when
+    larger).  ``last_only`` slices to the final position before the
+    lm_head matmul.  ``schedule``/``q_chunk``/``k_chunk``/``remat`` are
+    accepted for signature parity and have no effect (the port runs
+    forward only, without autodiff rematerialisation)."""
     kind = _plan(cfg)[0][1]
     x = params["embed"][batch["tokens"].long()]
     stack = params["layers"]
     for i in range(_n_layers(stack)):
         x = B.layer_apply(_layer(stack, i), cfg, x, kind, schedule=schedule,
-                          q_chunk=q_chunk, k_chunk=k_chunk)
+                          q_chunk=q_chunk, k_chunk=k_chunk,
+                          ssm_chunk=ssm_chunk)
     if last_only:
         x = x[:, -1:]
     x = L.norm_apply(params["final_norm"], x, cfg.norm)
@@ -136,18 +164,29 @@ def loss_fn(params, cfg, batch, **kw):
 
 def init_cache(cfg: ModelConfig, bsz: int, cache_len: int,
                device: Optional[Union[str, torch.device]] = None) -> dict:
-    """Zero KV caches ``{"layers": {"k", "v"}}`` of shape
-    ``(L, bsz, T, KV, dh)`` on ``device`` (``None`` = the card); a
-    sliding-window config keeps only the window (ring buffer)."""
+    """Zero caches on ``device`` (``None`` = the card), each leaf with a
+    leading ``(L,)`` layer dim: KV ``{"k", "v"}`` of shape
+    ``(L, bsz, T, KV, dh)`` for attention (a sliding-window config keeps
+    only the window, a ring buffer) and ``{"conv" (L, bsz, cw-1, Di),
+    "h" (L, bsz, Di, N) fp32}`` for the mamba heads."""
     dev = resolve_device(device)
     dt = torch_dtype(cfg.dtype)
     out = {}
-    for name, _, n, _ in _plan(cfg):
-        T = min(cache_len, cfg.sliding_window) if cfg.sliding_window > 0 \
-            else cache_len
-        shape = (n, bsz, T, cfg.n_kv_heads, cfg.head_dim)
-        out[name] = {"k": torch.zeros(shape, dtype=dt, device=dev),
-                     "v": torch.zeros(shape, dtype=dt, device=dev)}
+    for name, kind, n, _ in _plan(cfg):
+        layer = {}
+        if kind != "ssm":
+            T = min(cache_len, cfg.sliding_window) \
+                if cfg.sliding_window > 0 else cache_len
+            shape = (n, bsz, T, cfg.n_kv_heads, cfg.head_dim)
+            layer["k"] = torch.zeros(shape, dtype=dt, device=dev)
+            layer["v"] = torch.zeros(shape, dtype=dt, device=dev)
+        if kind in ("ssm", "hybrid"):
+            di = cfg.d_inner
+            layer["conv"] = torch.zeros((n, bsz, cfg.conv_width - 1, di),
+                                        dtype=dt, device=dev)
+            layer["h"] = torch.zeros((n, bsz, di, cfg.ssm_state),
+                                     dtype=torch.float32, device=dev)
+        out[name] = layer
     return out
 
 

@@ -1,5 +1,6 @@
 """The JAX ↔ torch bridge: a bitwise round trip for fp32 and bf16 trees,
-stacked layers keeping their leading (L,) dim."""
+stacked layers keeping their leading (L,) dim, including mixed-dtype
+mamba stacks and recurrent decode caches."""
 
 import numpy as np
 import pytest
@@ -49,3 +50,26 @@ def test_to_torch_copies_its_input():
     t = bridge.to_torch({"a": a}, "cpu")["a"]
     a[0] = 5.0
     assert float(t[0]) == 1.0
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "hymba-1.5b"])
+def test_ssm_param_and_cache_trees_round_trip_is_bitwise(arch):
+    """bf16 mamba stacks hold fp32 ``A_log``/``D``; caches hold bf16
+    ``conv``/``k``/``v`` beside an fp32 ``h``.  Each leaf keeps its own
+    dtype and bits both ways."""
+    cfg = get_config(arch, smoke=True)
+    trees = [JM.init_params(cfg, jax.random.PRNGKey(0)),
+             jax.tree.map(lambda a: a + 1, JM.init_cache(cfg, 2, 8))]
+    for tree in trees:
+        tt = bridge.to_torch(tree, "cpu")
+        back = bridge.to_numpy(tt)
+        for (path, a), t, b in zip(
+                jax.tree_util.tree_flatten_with_path(tree)[0],
+                jax.tree.leaves(tt), jax.tree.leaves(back)):
+            a = np.asarray(a)
+            assert str(t.dtype).split(".")[-1] == a.dtype.name, path
+            assert a.dtype == b.dtype and a.shape == b.shape, path
+            np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
+    ssm = bridge.to_torch(trees[0], "cpu")["layers"]["ssm"]
+    assert ssm["in_proj"]["w"].dtype == torch.bfloat16
+    assert ssm["A_log"].dtype == ssm["D"].dtype == torch.float32

@@ -4,7 +4,8 @@ Every test here is marked ``gpu`` and skips where there is no CUDA card;
 on the machine with the card run ``python -m pytest -m gpu
 tests/test_torch_cuda.py``.  Each kernel is held against its plain
 PyTorch version on the same inputs, at the reference's tolerances
-(``tests/test_kernels.py``: 2e-5 fp32 / 2e-2 bf16, 5× for ``moe_gmm``).
+(``tests/test_kernels.py``: 2e-5 fp32 / 2e-2 bf16, 5× for ``moe_gmm``,
+1e-4 for ``ssm_scan``).
 """
 
 import dataclasses
@@ -19,6 +20,8 @@ from repro_torch.kernels.flash_attention import flash_attention as FA  # noqa: E
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.moe_dispatch import moe_gmm as MG  # noqa: E402
 from repro_torch.kernels.moe_dispatch.ref import moe_gmm_ref  # noqa: E402
+from repro_torch.kernels.ssm_scan import ssm_scan as SS  # noqa: E402
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -97,6 +100,21 @@ def test_flash_attention_kernel_window(cuda, window):
     out = FA.flash_attention(q, k, v, causal=True, window=window)
     ref = attention_ref(q, k, v, causal=True, window=window)
     torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("S,window", [(256, 1024), (1500, 1024), (777, 100)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_hymba_group_of_five(cuda, S, window, dtype):
+    """hymba-1.5b's heads: G = 25 / 5 leaves 4 of a tile's 64 rows idle."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(5)
+    q = _t(rng.normal(size=(1, S, 25, 64)), dt, cuda)
+    k = _t(rng.normal(size=(1, S, 5, 64)), dt, cuda)
+    v = _t(rng.normal(size=(1, S, 5, 64)), dt, cuda)
+    out = FA.flash_attention(q, k, v, causal=True, window=window)
+    ref = attention_ref(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(out.float(), ref.float(), atol=_tol(dt),
+                               rtol=_tol(dt))
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
@@ -180,3 +198,91 @@ def test_chunked_prefill_bitwise_on_card(cuda):
             assert float((c - caches[0]).abs().max()) == 0.0
     finally:
         parity_mode(deterministic=False)
+
+
+# (B, L, Di, N): the reference's sweep shapes, ragged L and Di, and the
+# main path's launches (falcon-mamba-7b per chunk, hymba-1.5b's Di = 3200)
+SSM_SHAPES = [
+    (2, 256, 64, 8), (1, 128, 128, 16), (3, 512, 32, 4), (1, 100, 40, 4),
+    (2, 77, 200, 16), (1, 256, 8192, 16), (2, 256, 3200, 16),
+]
+
+
+@pytest.mark.parametrize("B,L,Di,N", SSM_SHAPES)
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssm_scan_kernel_matches_plain(cuda, B, L, Di, N, with_h0):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    dA = torch.rand(B, L, Di, N, generator=gen, device=cuda) * 0.499 + 0.5
+    dBx = torch.randn(B, L, Di, N, generator=gen, device=cuda) * 0.1
+    C = torch.randn(B, L, N, generator=gen, device=cuda)
+    h0 = torch.randn(B, Di, N, generator=gen, device=cuda) \
+        if with_h0 else None
+    n0 = SS.launches
+    y, h = SS.ssm_scan(dA, dBx, C, h0)
+    torch.cuda.synchronize()
+    assert SS.launches == n0 + 1
+    y_ref, h_ref = ssm_scan_ref(dA, dBx, C, h0)
+    torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(h, h_ref, atol=1e-4, rtol=1e-4)
+
+
+def test_ssm_scan_kernel_chains_like_one_call(cuda):
+    """Four launches carrying ``h`` equal one whole-length launch."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    dA = torch.rand(1, 1024, 512, 16, generator=gen, device=cuda) * 0.5 + 0.5
+    dBx = torch.randn(1, 1024, 512, 16, generator=gen, device=cuda) * 0.1
+    C = torch.randn(1, 1024, 16, generator=gen, device=cuda)
+    y_whole, h_whole = SS.ssm_scan(dA, dBx, C)
+    h, ys = None, []
+    for t0 in range(0, 1024, 256):
+        y, h = SS.ssm_scan(dA[:, t0:t0 + 256].contiguous(),
+                           dBx[:, t0:t0 + 256].contiguous(),
+                           C[:, t0:t0 + 256].contiguous(), h)
+        ys.append(y)
+    assert torch.equal(torch.cat(ys, dim=1), y_whole)
+    assert torch.equal(h, h_whole)
+
+
+def test_ssm_scan_refuses_what_it_does_not_take(cuda):
+    dA = torch.zeros((1, 8, 16, 4), device=cuda)
+    C = torch.zeros((1, 8, 4), device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        SS.ssm_scan(dA.bfloat16(), dA.bfloat16(), C.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        SS.ssm_scan(dA.transpose(2, 3).contiguous().transpose(2, 3), dA, C)
+    with pytest.raises(ValueError, match="CUDA"):
+        SS.ssm_scan(dA, dA, C, torch.zeros((1, 16, 4)))
+    with pytest.raises(ValueError, match="state size"):
+        wide = torch.zeros((1, 8, 16, 32), device=cuda)
+        SS.ssm_scan(wide, wide, torch.zeros((1, 8, 32), device=cuda))
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "hymba-1.5b"])
+def test_ssm_families_forward_matches_decode_and_cpu(cuda, arch):
+    """Smoke-size falcon-mamba / hymba on the card: the forward (one
+    ``ssm_scan`` launch per layer and chunk, plus ``flash_attention`` per
+    hybrid layer) agrees with the CPU's plain path, and token-by-token
+    decode reproduces its argmax."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    p_cpu = TM.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    p_gpu = _to(p_cpu, cuda)
+    toks = np.random.default_rng(4).integers(0, cfg.vocab, size=(2, 48))
+    n_ssm, n_fa = SS.launches, FA.launches
+    lg = TM.forward(p_gpu, cfg, {"tokens": torch.tensor(toks, device=cuda)},
+                    ssm_chunk=16)
+    assert SS.launches == n_ssm + 3 * cfg.n_layers
+    assert FA.launches == n_fa + (cfg.n_layers if arch == "hymba-1.5b"
+                                  else 0)
+    lc = TM.forward(p_cpu, cfg, {"tokens": torch.tensor(toks)}, ssm_chunk=16)
+    torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+    cache = TM.init_cache(cfg, 2, 64, device=cuda)
+    outs = []
+    for t in range(toks.shape[1]):
+        logits, _ = TM.decode_step(p_gpu, cfg, cache, {
+            "tokens": torch.tensor(toks[:, t:t + 1], device=cuda),
+            "cache_index": torch.tensor(t, device=cuda)})
+        outs.append(logits)
+    dec = torch.stack(outs, dim=1)
+    torch.testing.assert_close(dec, lg, atol=1e-4, rtol=1e-4)
+    assert torch.equal(dec.argmax(-1), lg.argmax(-1))

@@ -118,3 +118,19 @@ def test_kernel_wrappers_refuse_mixed_devices():
     w = torch.zeros(2, 16, 8)
     with pytest.raises(ValueError, match="CUDA"):
         MG.moe_gmm(buf, w, w, torch.zeros(2, 8, 16))
+
+
+def test_ssm_scan_wrapper_runs_plain_on_cpu_and_refuses_mixed_devices():
+    from repro_torch.kernels.ssm_scan import ssm_scan as SS
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+
+    g = torch.Generator().manual_seed(0)
+    dA, dBx = torch.rand(1, 6, 8, 4, generator=g), torch.randn(1, 6, 8, 4)
+    C, h0 = torch.randn(1, 6, 4, generator=g), torch.randn(1, 8, 4)
+    n0 = SS.launches
+    for got, want in zip(SS.ssm_scan(dA, dBx, C, h0),
+                         ssm_scan_ref(dA, dBx, C, h0)):
+        assert torch.equal(got, want)
+    assert SS.launches == n0
+    with pytest.raises(ValueError, match="CUDA"):
+        SS.ssm_scan(dA, dBx, C, torch.zeros(1, 8, 4, device="meta"))

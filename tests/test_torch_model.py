@@ -3,8 +3,10 @@ reference, and port-internal mirrors of the reference's prefill tests.
 
 Weights come from the reference's ``init_params`` through the bridge, in
 fp32 (``dataclasses.replace(cfg, dtype="float32")``), on the granite-moe
-and qwen2.5 SMOKE configs.  Logits within 1e-4, loss within 1e-5, KV
-caches within 1e-5; chunked == whole prefill exactly (max |Δ| == 0.0).
+and qwen2.5 SMOKE configs, and on the falcon-mamba (ssm) and hymba
+(hybrid) SMOKE configs.  Logits within 1e-4, loss within 1e-5, KV caches
+within 1e-5 and SSM decode state within 1e-4; chunked == whole prefill
+exactly (max |Δ| == 0.0).
 """
 
 import dataclasses
@@ -25,6 +27,7 @@ from repro_torch.configs.base import ModelConfig as TModelConfig  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 
 ARCHS = ["granite-moe-1b-a400m", "qwen2.5-32b"]
+SSM_ARCHS = ["falcon-mamba-7b", "hymba-1.5b"]
 CPU = torch.device("cpu")
 
 
@@ -278,19 +281,19 @@ def test_prefill_rejected_for_unsupported_cache_families():
                          "count": torch.ones(1, dtype=torch.long)})
 
 
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "hymba-1.5b",
-                                  "whisper-medium", "llama-3.2-vision-90b"])
+@pytest.mark.parametrize("arch", ["whisper-medium", "llama-3.2-vision-90b"])
 def test_unported_families_raise_and_name_their_roadmap_item(arch):
     cfg = t_get_config(arch, smoke=True)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         TM.init_params(cfg, torch.Generator().manual_seed(0), device=CPU)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + SSM_ARCHS)
 def test_init_params_matches_reference_tree(arch):
     """The torch-native init builds the reference's tree: same keys,
-    shapes and dtypes (bf16 experts, fp32 router), and the reference's
-    scales (embed std 0.02, weights std fan_in^-0.5)."""
+    shapes and dtypes (bf16 experts, fp32 router, fp32 ``A_log``/``D``
+    inside bf16 mamba stacks), and the reference's scales (embed std 0.02,
+    weights std fan_in^-0.5; attention-free falcon has no ``wq``)."""
     cfg = get_config(arch, smoke=True)
     tcfg = t_get_config(arch, smoke=True)
     jp = jax.tree.map(np.asarray, JM.init_params(cfg, jax.random.PRNGKey(0)))
@@ -311,6 +314,151 @@ def test_init_params_matches_reference_tree(arch):
         assert tuple(tflat[k].shape) == v.shape, k
         assert str(tflat[k].dtype).split(".")[-1] == v.dtype.name, k
     assert abs(float(tp["embed"].float().std()) - 0.02) < 2e-3
+    if "attn" not in tp["layers"]:
+        return
     wq = tp["layers"]["attn"]["wq"]["w"].float()
     assert abs(float(wq.std()) - tcfg.d_model ** -0.5) < 0.1 * \
         tcfg.d_model ** -0.5
+
+
+# -- ssm (falcon-mamba) and hybrid (hymba) families ---------------------------
+
+
+@pytest.fixture(scope="module", params=SSM_ARCHS)
+def ssm_pair(request):
+    cfg, tcfg = _cfgs(request.param)
+    jp = JM.init_params(cfg, jax.random.PRNGKey(0))
+    return cfg, tcfg, jp, bridge.to_torch(jp, CPU)
+
+
+def test_ssm_forward_matches_reference(ssm_pair):
+    """48 tokens in three 16-token scan chunks (the state crosses two
+    chunk borders), and ``last_only``."""
+    cfg, tcfg, jp, tp = ssm_pair
+    toks = _tokens(cfg, (2, 48), 11)
+    jl = JM.forward(jp, cfg, {"tokens": jnp.asarray(toks)}, ssm_chunk=16,
+                    q_chunk=16, k_chunk=16)
+    tl = TM.forward(tp, tcfg, {"tokens": torch.tensor(toks)}, ssm_chunk=16)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4,
+                               rtol=1e-4)
+    jlast = JM.forward(jp, cfg, {"tokens": jnp.asarray(toks)}, ssm_chunk=16,
+                       last_only=True)
+    tlast = TM.forward(tp, tcfg, {"tokens": torch.tensor(toks)},
+                       ssm_chunk=16, last_only=True)
+    assert tuple(tlast.shape) == (2, 1, cfg.padded_vocab)
+    np.testing.assert_allclose(tlast.numpy(), np.asarray(jlast), atol=1e-4,
+                               rtol=1e-4)
+
+
+def test_ssm_loss_matches_reference(ssm_pair):
+    cfg, tcfg, jp, tp = ssm_pair
+    toks, labels = _tokens(cfg, (2, 32), 12), _tokens(cfg, (2, 32), 13)
+    jl = JM.loss_fn(jp, cfg, {"tokens": jnp.asarray(toks),
+                              "labels": jnp.asarray(labels)}, ssm_chunk=8)
+    tl = TM.loss_fn(tp, tcfg, {"tokens": torch.tensor(toks),
+                               "labels": torch.tensor(labels)}, ssm_chunk=8)
+    assert abs(float(tl) - float(jl)) <= 1e-5
+
+
+def test_ssm_decode_caches_match_reference(ssm_pair):
+    """Ten decode steps at per-row positions: logits within 1e-4, and
+    every cache leaf (``conv``, ``h`` and, for hymba, ``k``/``v``) within
+    1e-4 of the reference's after the same tokens."""
+    cfg, tcfg, jp, tp = ssm_pair
+    toks = _tokens(cfg, (2, 10), 14)
+    jc = JM.init_cache(cfg, 2, 16)
+    tc = TM.init_cache(tcfg, 2, 16, device=CPU)
+    assert sorted(tc["layers"]) == sorted(jc["layers"])
+    for k, v in jc["layers"].items():
+        assert tuple(tc["layers"][k].shape) == v.shape, k
+        assert str(tc["layers"][k].dtype).split(".")[-1] == v.dtype.name, k
+    for t in range(10):
+        idx = np.array([t, t], np.int32)
+        jl, jc = JM.decode_step(jp, cfg, jc, {
+            "tokens": jnp.asarray(toks[:, t:t + 1]),
+            "cache_index": jnp.asarray(idx)})
+        tl, tc = TM.decode_step(tp, tcfg, tc, {
+            "tokens": torch.tensor(toks[:, t:t + 1]),
+            "cache_index": torch.tensor(idx)})
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4,
+                                   rtol=1e-4)
+    for k, v in jc["layers"].items():
+        np.testing.assert_allclose(tc["layers"][k].numpy(), np.asarray(v),
+                                   atol=1e-4, rtol=1e-4, err_msg=k)
+
+
+def test_ssm_forward_scan_chunk_does_not_change_logits(ssm_pair):
+    """``ssm_chunk=4`` (eight chained launches) equals one launch over
+    the whole sequence."""
+    _, tcfg, _, tp = ssm_pair
+    toks = torch.tensor(_tokens(tcfg, (2, 32), 15))
+    a = TM.forward(tp, tcfg, {"tokens": toks}, ssm_chunk=4)
+    b = TM.forward(tp, tcfg, {"tokens": toks}, ssm_chunk=32)
+    torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_decode_matches_forward_ssm():
+    """Mirror of the reference's test (falcon-mamba SMOKE, 8 tokens,
+    ``ssm_chunk=4``), in fp32 on the CPU: same argmax, logits within
+    1e-4."""
+    cfg = dataclasses.replace(t_get_config("falcon-mamba-7b", smoke=True),
+                              dtype="float32")
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0),
+                            device=CPU)
+    T = 8
+    tokens = torch.randint(0, cfg.vocab, (1, T),
+                           generator=torch.Generator().manual_seed(1))
+    full = TM.forward(params, cfg, {"tokens": tokens}, ssm_chunk=4)
+    cache = TM.init_cache(cfg, 1, 16, device=CPU)
+    outs = []
+    for t in range(T):
+        logits, cache = TM.decode_step(params, cfg, cache, {
+            "tokens": tokens[:, t:t + 1], "cache_index": torch.tensor(t)})
+        outs.append(logits)
+    dec = torch.stack(outs, dim=1)
+    torch.testing.assert_close(dec, full, atol=1e-4, rtol=1e-4)
+    assert torch.equal(dec.argmax(-1), full.argmax(-1))
+
+
+def test_hybrid_decode_across_the_window_matches_forward():
+    """hymba SMOKE (window 32): 48 decode steps wrap the 32-entry KV ring
+    buffer while the SSM state runs on; every step's logits match the
+    whole-sequence forward (windowed flash attention + chained scan)."""
+    cfg = dataclasses.replace(t_get_config("hymba-1.5b", smoke=True),
+                              dtype="float32")
+    params = TM.init_params(cfg, torch.Generator().manual_seed(2),
+                            device=CPU)
+    T = 48
+    tokens = torch.randint(0, cfg.vocab, (2, T),
+                           generator=torch.Generator().manual_seed(3))
+    full = TM.forward(params, cfg, {"tokens": tokens}, ssm_chunk=16)
+    cache = TM.init_cache(cfg, 2, 64, device=CPU)
+    assert cache["layers"]["k"].shape[2] == cfg.sliding_window < T
+    outs = []
+    for t in range(T):
+        logits, cache = TM.decode_step(params, cfg, cache, {
+            "tokens": tokens[:, t:t + 1], "cache_index": torch.tensor(t)})
+        outs.append(logits)
+    dec = torch.stack(outs, dim=1)
+    torch.testing.assert_close(dec, full, atol=1e-4, rtol=1e-4)
+    assert torch.equal(dec.argmax(-1), full.argmax(-1))
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_recurrent_families_refused_by_serving_and_prefill(arch):
+    """As in the reference: the batcher refuses recurrent state (a refill
+    would leak it between requests) and ``prefill_step`` has no
+    position-indexed span write for it."""
+    from repro_torch.serve.batcher import ContinuousBatcher
+
+    cfg = dataclasses.replace(t_get_config(arch, smoke=True),
+                              dtype="float32")
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0),
+                            device=CPU)
+    with pytest.raises(NotImplementedError, match="recurrent"):
+        ContinuousBatcher(cfg, params, device="cpu")
+    with pytest.raises(NotImplementedError, match="position-indexed"):
+        TM.prefill_step(params, cfg, TM.init_cache(cfg, 1, 16, device=CPU),
+                        {"tokens": torch.zeros((1, 4), dtype=torch.long),
+                         "cache_index": torch.zeros(1, dtype=torch.long),
+                         "count": torch.ones(1, dtype=torch.long)})
