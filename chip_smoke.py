@@ -7,9 +7,12 @@ Builds the hand-written kernels from ``src/repro_torch/csrc`` (one
 ``nvcc`` per source, all started together), then drives the port with
 random weights made from a seed, at the full width of
 granite-moe-1b-a400m (24 layers, d_model 1024, 32 experts top-8),
-falcon-mamba-7b (64 layers, d_model 4096, d_inner 8192, state 16) and
+falcon-mamba-7b (64 layers, d_model 4096, d_inner 8192, state 16),
 hymba-1.5b (32 layers, d_model 1600, 25 heads / 5 kv heads, window 1024,
-d_inner 3200):
+d_inner 3200), phi3-mini-3.8b (32 layers, d_model 3072, 32 heads of dim
+96) and mixtral-8x7b (d_model 4096, 32 heads / 8 kv heads, 8 experts
+top-2 of width 14336, window 4096; 2 of its 32 layers, since its 93 GB
+of bf16 weights exceed the card):
 
 1. ``card``: the card's name and power limit from ``nvidia-smi``.
 2. ``moe_gmm``: the kernel against its plain PyTorch version at the
@@ -18,13 +21,17 @@ d_inner 3200):
    version and a ``torch.bmm`` chain, and the least time the card could
    take for the same work.
 3. ``flash_attention``: the same at (B=1, S=2048, H=16, KV=8, dh=64),
-   causal and with a 256 window, bf16 and fp32, and at hymba's shape
-   (H=25, KV=5, window 1024) for S=256 fp32 and S=2048 bf16 (library:
-   SDPA).
-4. ``forward`` (fp32, TF32 off): the whole-sequence forward's argmax on
-   a 256-token prompt equals the prefill + decode argmax; the dense
-   qwen2.5 SMOKE model's chunked prefill equals its whole prefill
-   bitwise under deterministic algorithms.
+   causal and with a 256 window, bf16 and fp32, at hymba's shape
+   (H=25, KV=5, window 1024) for S=256 fp32 and S=2048 bf16, at
+   phi3-mini's (H=KV=32, dh=96) for S=256 fp32 and S=2048 bf16, and at
+   mixtral's 512-token bf16 forward (H=32, KV=8, dh=128, window 4096)
+   (library: SDPA).
+4. ``fp32_forward`` (fp32, TF32 off), granite: the whole-sequence
+   forward's argmax on a 256-token prompt equals the prefill + decode
+   argmax, with exactly one ``flash_attention`` and one ``moe_gmm``
+   launch per layer; ``chunked_prefill``: the dense qwen2.5 SMOKE
+   model's chunked prefill equals its whole prefill bitwise under
+   deterministic algorithms.
 5. ``serve`` (bf16): ``repro_torch.launch.serve.main`` through its CLI,
    and a ContinuousBatcher run of 16 requests with 128–384-token
    prompts, 32-token chunks and 32 new tokens each on 8 slots; every
@@ -35,26 +42,37 @@ d_inner 3200):
    a carried state (``h_out`` compared too), a whole 2048-token layer,
    and hymba's ragged width (B=2, L=256, Di=3200); no single PyTorch call
    computes the recurrence, so there is no library time.
-7. ``ssm_forward`` (fp32, TF32 off), falcon-mamba-7b at full depth, then
-   hymba-1.5b: ``forward(last_only)`` over a 256-token prompt has the
-   argmax of the same tokens fed one by one through ``decode_step``;
-   ``ssm_scan`` launches once per layer (64 / 32) and, for hymba,
+7. ``fp32_forward``, falcon-mamba-7b at full depth, then hymba-1.5b:
+   ``forward(last_only)`` over a 256-token prompt has the argmax of the
+   same tokens fed one by one through ``decode_step``; ``ssm_scan``
+   launches once per layer (64 / 32) and, for hymba,
    ``flash_attention`` too (32).
 8. ``ssm_bf16``: falcon-mamba-7b in bf16, one timed 2048-token forward
    and 32 timed greedy decode steps after a 16-token prompt, finite
    logits, peak device memory.
+9. phi3-mini-3.8b at full depth: ``fp32_forward`` over a 256-token
+   prompt against prefill + decode (32 ``flash_attention`` launches);
+   ``wide_bf16``, one timed bf16 2048-token forward with exactly 32
+   launches (tensor-core path), tokens/s and peak device memory.
+10. mixtral-8x7b, 2 layers: ``moe_gmm`` at its expert shape (E=8,
+    d=4096 in four d-slices, f=14336) against its plain version and the
+    ``torch.bmm`` chain, bf16 at C=160 and fp32 at C=64;
+    ``fp32_forward`` over 64 tokens (capacity factor E / top_k) against
+    the same tokens fed one by one through ``decode_step`` (prefill
+    refuses sliding-window caches); ``wide_bf16``, one timed 512-token
+    forward with exactly 2 ``moe_gmm`` and 2 ``flash_attention``
+    launches.
 
-Each main-path run (the forward of phase 4 for ``flash_attention``; the
-serve CLI and the batcher run of phase 5 for ``moe_gmm``, whose CLI count
-goes into the ``kernels`` line; the falcon-mamba-7b forward of phase 7
-for ``ssm_scan``, and the hymba-1.5b forward for both ``ssm_scan`` and
-``flash_attention``) zeroes the launch counters just before it and reads
-them just after; launches made to compare a kernel with its
-plain version are not counted.  Every phase prints one JSON line
-and raises on failure.  The second-to-last line is the ``kernels`` JSON
-and the last line ``{"ok": true, "device": {...}}``.  Without a CUDA
-card, or without the package beside this script, it exits non-zero and
-prints no result.
+Each main-path run (each forward of phases 4, 7, 9 and 10; the serve
+CLI and the batcher run of phase 5 for ``moe_gmm``) zeroes the launch
+counters just before it and reads them just after; the ``kernels`` line
+takes ``moe_gmm``'s count from the serve CLI, ``ssm_scan``'s from the
+fp32 falcon-mamba-7b forward and ``flash_attention``'s from the bf16
+phi3-mini forward.  Launches made to compare a kernel with its plain
+version are not counted.  Every phase prints JSON lines and raises on
+failure.  The second-to-last line is the ``kernels`` JSON and the last
+line ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without
+the package beside this script, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -120,16 +138,15 @@ def max_err(torch, out, ref, atol, rtol, what):
 # ---------------------------------------------------------------------------
 
 
-def phase_moe_gmm(torch, cfg) -> list:
+def phase_moe_gmm(torch, cfg, plan) -> list:
+    """``plan``: (dtype, capacities) pairs at ``cfg``'s expert shape."""
     from repro_torch.kernels.moe_dispatch import moe_gmm as MG
     from repro_torch.kernels.moe_dispatch.ref import moe_gmm_ref
 
     E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
-    # C = 8: a decode step of 8 slots; C = 80: a prefill round of 8 x 32
-    # tokens; C = 256 (fp32): the 256-token forward of phase 4
-    for dtype, caps in (("bfloat16", (8, 80)), ("float32", (8, 80, 256))):
+    for dtype, caps in plan:
         dt = getattr(torch, dtype)
         w1 = (torch.randn(E, d, f, generator=gen, device="cuda")
               * d ** -0.5).to(dt)
@@ -152,7 +169,8 @@ def phase_moe_gmm(torch, cfg) -> list:
             esz = buf.element_size()
             nbytes = (2 * E * C * d + 3 * E * d * f) * esz
             b_ms, b_by = bound(nbytes, 6 * E * C * d * f, dtype)
-            row = {"phase": "moe_gmm", "E": E, "C": C, "d": d, "f": f,
+            row = {"phase": "moe_gmm", "arch": cfg.name, "E": E, "C": C,
+                   "d": d, "f": f, "d_slices": MG.d_slices(d),
                    "dtype": dtype, "max_abs_err": err, "atol": tol,
                    "rtol": tol,
                    "kernel_ms": time_ms(torch, lambda: MG.moe_gmm(
@@ -163,7 +181,9 @@ def phase_moe_gmm(torch, cfg) -> list:
                    "bound_ms": b_ms, "bound_by": b_by}
             emit(row)
             rows.append(row)
+            del buf, out
         del w1, w3, w2
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -184,22 +204,15 @@ def attention_flops(S: int, T: int, B: int, H: int, dh: int, causal: bool,
     return 4.0 * dh * B * H * pairs
 
 
-def phase_flash(torch, cfg, hybrid) -> list:
+def phase_flash(torch, cases) -> list:
+    """``cases``: (config, S, dtype, window) at B = 1, causal."""
     from repro_torch.kernels.flash_attention import flash_attention as FA
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     B = 1
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     rows = []
-    # granite: S = 256 fp32 causal is the forward of phase 4, S = 2048 a
-    # long prompt; hymba (G = 5, window 1024): S = 256 fp32 is the forward
-    # of phase 7
-    hw = hybrid.sliding_window
-    for c, S, dtype, window in (
-            (cfg, 256, "float32", 0), (cfg, 2048, "bfloat16", 0),
-            (cfg, 2048, "bfloat16", 256), (cfg, 2048, "float32", 0),
-            (cfg, 2048, "float32", 256), (hybrid, 256, "float32", hw),
-            (hybrid, 2048, "bfloat16", hw)):
+    for c, S, dtype, window in cases:
         H, KV, dh = c.n_heads, c.n_kv_heads, c.head_dim
         dt = getattr(torch, dtype)
         q = torch.randn(B, S, H, dh, generator=gen, device="cuda").to(dt)
@@ -242,63 +255,109 @@ def phase_flash(torch, cfg, hybrid) -> list:
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: forward vs prefill + decode (fp32), chunked == whole (bitwise)
+# Phases 4, 7, 9, 10 (fp32): forward vs prefill + decode or decode alone
 # ---------------------------------------------------------------------------
 
 
-def phase_forward(torch, cfg) -> dict:
+def phase_fp32_forward(torch, cfg, prompt_len: int, via: str) -> dict:
+    """Full width, fp32, TF32 off: ``forward(last_only)`` over a prompt
+    (one ``ssm_scan`` launch per mamba layer at ssm_chunk 256) against
+    the same prompt through ``prefill_step`` + one ``decode_step``
+    (``via="prefill"``) or fed token by token through ``decode_step``
+    (``via="decode"``: the recurrent families and sliding-window caches,
+    which prefill refuses).  MoE capacity is ample (factor E / top_k), so
+    no pair can drop: drops depend on how many tokens share a launch.
+    Each kernel must launch exactly once per layer that has it."""
     from repro_torch.device import parity_mode
     from repro_torch.kernels.flash_attention import flash_attention as FA
     from repro_torch.kernels.moe_dispatch import moe_gmm as MG
+    from repro_torch.kernels.ssm_scan import ssm_scan as SS
     from repro_torch.models import model as TM
 
     parity_mode(deterministic=False)
-    # Capacity ample (C >= T): no (token, choice) pair can be dropped, so
-    # the whole-sequence forward and the prefill + decode path compute
-    # the same function (drops depend on how many tokens share a launch).
-    c32 = dataclasses.replace(cfg, dtype="float32",
-                              moe_capacity_factor=cfg.n_experts / cfg.top_k)
+    kw = {"moe_capacity_factor": cfg.n_experts / cfg.top_k} \
+        if cfg.n_experts else {}
+    c32 = dataclasses.replace(cfg, dtype="float32", **kw)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = TM.init_params(c32, gen, device="cuda")
-    prompt = torch.randint(0, c32.vocab, (1, 256), generator=gen,
+    prompt = torch.randint(0, c32.vocab, (1, prompt_len), generator=gen,
                            device="cuda")
-    MG.launches = FA.launches = 0
-    fwd = TM.forward(params, c32, {"tokens": prompt}, last_only=True)[:, 0]
+    MG.launches = FA.launches = SS.launches = 0
+    fwd = TM.forward(params, c32, {"tokens": prompt}, ssm_chunk=256,
+                     last_only=True)[:, 0]
     torch.cuda.synchronize()
-    launches = {"flash_attention": FA.launches, "moe_gmm": MG.launches}
-    cache = TM.init_cache(c32, 1, 512, device="cuda")
-    TM.prefill_step(params, c32, cache, {
-        "tokens": prompt[:, :255],
-        "cache_index": torch.zeros(1, dtype=torch.long, device="cuda"),
-        "count": torch.tensor([255], device="cuda")})
-    dec, _ = TM.decode_step(params, c32, cache, {
-        "tokens": prompt[:, 255:], "cache_index": torch.tensor(
-            [255], device="cuda")})
+    launches = {"flash_attention": FA.launches, "moe_gmm": MG.launches,
+                "ssm_scan": SS.launches}
+    L = cfg.n_layers
+    expect = {"flash_attention": 0 if cfg.family == "ssm" else L,
+              "moe_gmm": L if cfg.n_experts else 0,
+              "ssm_scan": L if cfg.family in ("ssm", "hybrid") else 0}
+    t0 = time.perf_counter()
+    if via == "prefill":
+        cache = TM.init_cache(c32, 1, 2 * prompt_len, device="cuda")
+        TM.prefill_step(params, c32, cache, {
+            "tokens": prompt[:, :-1],
+            "cache_index": torch.zeros(1, dtype=torch.long, device="cuda"),
+            "count": torch.tensor([prompt_len - 1], device="cuda")})
+        dec, _ = TM.decode_step(params, c32, cache, {
+            "tokens": prompt[:, -1:], "cache_index": torch.tensor(
+                [prompt_len - 1], device="cuda")})
+    else:
+        cache = TM.init_cache(c32, 1, prompt_len, device="cuda")
+        for t in range(prompt_len):
+            dec, _ = TM.decode_step(params, c32, cache, {
+                "tokens": prompt[:, t:t + 1],
+                "cache_index": torch.tensor(t, device="cuda")})
+    torch.cuda.synchronize()
     V = c32.vocab
-    if not (bool(torch.isfinite(fwd).all()) and bool(torch.isfinite(dec).all())):
-        raise AssertionError("forward: non-finite logits")
     a_fwd = int(fwd[0, :V].argmax())
     a_dec = int(dec[0, :V].argmax())
     top2 = torch.topk(fwd[0, :V], 2).values
-    row = {"phase": "forward", "arch": cfg.name, "dtype": "float32",
-           "prompt": 256, "argmax_forward": a_fwd, "argmax_decode": a_dec,
+    row = {"phase": "fp32_forward", "arch": cfg.name, "dtype": "float32",
+           "layers": L, "d_model": cfg.d_model, "params": sum(
+               t.numel() for t in _leaves(params)),
+           "prompt": prompt_len, "via": via, "argmax_forward": a_fwd,
+           "argmax_decode": a_dec,
            "logits_max_abs_diff": float((fwd - dec).abs().max()),
-           "top2_margin": float(top2[0] - top2[1]), "launches": launches}
+           "top2_margin": float(top2[0] - top2[1]),
+           "decode_s": time.perf_counter() - t0, "launches": launches,
+           "expected_launches": expect}
+    emit(row)
+    finite = bool(torch.isfinite(fwd).all()) and \
+        bool(torch.isfinite(dec).all())
     del params, cache
+    torch.cuda.empty_cache()
+    if not finite:
+        raise AssertionError(f"{cfg.name}: non-finite logits")
     if a_fwd != a_dec:
-        emit(row)
-        raise AssertionError("forward argmax != prefill+decode argmax")
-    if launches["flash_attention"] == 0:
-        raise AssertionError("forward never launched flash_attention")
+        raise AssertionError(f"{cfg.name}: forward argmax != {via} argmax")
+    if launches != expect:
+        raise AssertionError(f"{cfg.name}: launches {launches} != {expect}")
+    return row
 
-    # dense qwen2.5 SMOKE: chunked == whole prefill, bitwise
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_chunked_prefill(torch) -> dict:
+    """Dense qwen2.5 SMOKE, fp32 under deterministic algorithms: prefill
+    in chunks of 11, 1 x 11 and 8 + 3 tokens gives bitwise the caches and
+    logits of one whole prefill."""
     from repro_torch.configs import get_config
+    from repro_torch.device import parity_mode
+    from repro_torch.models import model as TM
+
     dense = dataclasses.replace(get_config("qwen2.5-32b", smoke=True),
                                 dtype="float32")
     parity_mode(deterministic=True)
     try:
-        dp = TM.init_params(dense, torch.Generator(device="cuda")
-                            .manual_seed(SEED), device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        dp = TM.init_params(dense, gen, device="cuda")
         toks = torch.randint(0, dense.vocab, (12,), generator=gen,
                              device="cuda")
         results = []
@@ -322,7 +381,8 @@ def phase_forward(torch, cfg) -> dict:
                     for r in results[1:] for a, b in zip(r, results[0]))
     finally:
         parity_mode(deterministic=False)
-    row["chunked_vs_whole_max_abs_diff"] = delta
+    row = {"phase": "chunked_prefill", "arch": dense.name,
+           "chunked_vs_whole_max_abs_diff": delta}
     emit(row)
     if delta != 0.0:
         raise AssertionError(f"chunked prefill != whole prefill: {delta}")
@@ -487,75 +547,6 @@ def phase_ssm_scan(torch) -> list:
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: ssm / hybrid forward vs token-by-token decode (fp32)
-# ---------------------------------------------------------------------------
-
-
-def phase_ssm_forward(torch, cfg) -> dict:
-    """Full width and depth, fp32, TF32 off: ``forward(last_only)`` over a
-    256-token prompt (one ``ssm_scan`` launch per layer at ssm_chunk 256)
-    against the same tokens fed one at a time through ``decode_step``."""
-    from repro_torch.device import parity_mode
-    from repro_torch.kernels.flash_attention import flash_attention as FA
-    from repro_torch.kernels.ssm_scan import ssm_scan as SS
-    from repro_torch.models import model as TM
-
-    parity_mode(deterministic=False)
-    c32 = dataclasses.replace(cfg, dtype="float32")
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    params = TM.init_params(c32, gen, device="cuda")
-    prompt = torch.randint(0, c32.vocab, (1, 256), generator=gen,
-                           device="cuda")
-    SS.launches = FA.launches = 0
-    fwd = TM.forward(params, c32, {"tokens": prompt}, ssm_chunk=256,
-                     last_only=True)[:, 0]
-    torch.cuda.synchronize()
-    launches = {"ssm_scan": SS.launches, "flash_attention": FA.launches}
-    expect = {"ssm_scan": cfg.n_layers,
-              "flash_attention": cfg.n_layers if cfg.family == "hybrid"
-              else 0}
-    cache = TM.init_cache(c32, 1, 256, device="cuda")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for t in range(256):
-        dec, _ = TM.decode_step(params, c32, cache, {
-            "tokens": prompt[:, t:t + 1],
-            "cache_index": torch.tensor(t, device="cuda")})
-    torch.cuda.synchronize()
-    decode_s = time.perf_counter() - t0
-    V = c32.vocab
-    a_fwd = int(fwd[0, :V].argmax())
-    a_dec = int(dec[0, :V].argmax())
-    top2 = torch.topk(fwd[0, :V], 2).values
-    row = {"phase": "ssm_forward", "arch": cfg.name, "dtype": "float32",
-           "layers": cfg.n_layers, "d_model": cfg.d_model,
-           "d_inner": cfg.d_inner, "params": sum(
-               t.numel() for t in _leaves(params)),
-           "prompt": 256, "argmax_forward": a_fwd, "argmax_decode": a_dec,
-           "logits_max_abs_diff": float((fwd - dec).abs().max()),
-           "top2_margin": float(top2[0] - top2[1]), "decode_s": decode_s,
-           "launches": launches, "expected_launches": expect}
-    emit(row)
-    del params, cache
-    torch.cuda.empty_cache()
-    if not (bool(torch.isfinite(fwd).all()) and bool(torch.isfinite(dec).all())):
-        raise AssertionError(f"{cfg.name}: non-finite logits")
-    if a_fwd != a_dec:
-        raise AssertionError(f"{cfg.name}: forward argmax != decode argmax")
-    if launches != expect:
-        raise AssertionError(f"{cfg.name}: launches {launches} != {expect}")
-    return row
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
-# ---------------------------------------------------------------------------
 # Phase 8: falcon-mamba-7b in bf16, timed
 # ---------------------------------------------------------------------------
 
@@ -615,6 +606,54 @@ def phase_ssm_bf16(torch, cfg, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phases 9-10 (bf16): phi3-mini-3.8b and mixtral-8x7b (2 layers), timed
+# ---------------------------------------------------------------------------
+
+
+def phase_wide_bf16(torch, cfg, card: str, prompt_len: int) -> dict:
+    """bf16: one warm-up and one timed ``forward(last_only)`` over a
+    prompt, host clock around synchronised work; exactly one
+    ``flash_attention`` (and, for MoE, one ``moe_gmm``) launch per layer."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.moe_dispatch import moe_gmm as MG
+    from repro_torch.models import model as TM
+
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = TM.init_params(cfg, gen, device="cuda")
+    toks = torch.randint(0, cfg.vocab, (1, prompt_len), generator=gen,
+                         device="cuda")
+    TM.forward(params, cfg, {"tokens": toks}, last_only=True)  # warm-up
+    torch.cuda.synchronize()
+    MG.launches = FA.launches = 0
+    t0 = time.perf_counter()
+    fwd = TM.forward(params, cfg, {"tokens": toks}, last_only=True)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"flash_attention": FA.launches, "moe_gmm": MG.launches}
+    expect = {"flash_attention": cfg.n_layers,
+              "moe_gmm": cfg.n_layers if cfg.n_experts else 0}
+    finite = bool(torch.isfinite(fwd).all())
+    row = {"phase": "wide_bf16", "arch": cfg.name, "dtype": cfg.dtype,
+           "card": card, "layers": cfg.n_layers, "window":
+               cfg.sliding_window, "forward_tokens": prompt_len,
+           "forward_ms": fwd_ms,
+           "forward_tokens_per_s": prompt_len / fwd_ms * 1e3,
+           "launches": launches, "expected_launches": expect,
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 1e9, "finite": finite}
+    emit(row)
+    del params, fwd
+    torch.cuda.empty_cache()
+    if not finite:
+        raise AssertionError(f"{cfg.name} bf16: non-finite logits")
+    if launches != expect:
+        raise AssertionError(f"{cfg.name} bf16: launches {launches} != "
+                             f"{expect}")
+    return row
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -653,23 +692,51 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config("granite-moe-1b-a400m")
     falcon, hymba = get_config("falcon-mamba-7b"), get_config("hymba-1.5b")
-    moe_rows = phase_moe_gmm(torch, cfg)
-    flash_rows = phase_flash(torch, cfg, hymba)
-    fwd = phase_forward(torch, cfg)
+    phi3 = get_config("phi3-mini-3.8b")
+    # mixtral-8x7b's 46.7 B parameters (93 GB in bf16) exceed the card's
+    # 80 GB: 2 of its 32 layers at published widths, the one reduction
+    mixtral = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=2)
+    # granite: C = 8, a decode step of 8 slots; C = 80, a prefill round of
+    # 8 x 32 tokens; C = 256 (fp32), the 256-token forward of phase 4
+    moe_rows = phase_moe_gmm(torch, cfg, (("bfloat16", (8, 80)),
+                                          ("float32", (8, 80, 256))))
+    # granite: S = 256 fp32 causal is the forward of phase 4, S = 2048 a
+    # long prompt; hymba (G = 5, window 1024): S = 256 fp32 is the forward
+    # of phase 7; phi3-mini (dh 96, G = 1) and mixtral (window 4096): the
+    # forwards of phases 9 and 10
+    hw = hymba.sliding_window
+    flash_rows = phase_flash(torch, (
+        (cfg, 256, "float32", 0), (cfg, 2048, "bfloat16", 0),
+        (cfg, 2048, "bfloat16", 256), (cfg, 2048, "float32", 0),
+        (cfg, 2048, "float32", 256), (hymba, 256, "float32", hw),
+        (hymba, 2048, "bfloat16", hw), (phi3, 256, "float32", 0),
+        (phi3, 2048, "bfloat16", 0),
+        (mixtral, 512, "bfloat16", mixtral.sliding_window)))
+    phase_fp32_forward(torch, cfg, 256, "prefill")
+    phase_chunked_prefill(torch)
     srv = phase_serve(torch, cfg, smi)
     ssm_rows = phase_ssm_scan(torch)
-    ssm_fwd = phase_ssm_forward(torch, falcon)
-    phase_ssm_forward(torch, hymba)
+    ssm_fwd = phase_fp32_forward(torch, falcon, 256, "decode")
+    phase_fp32_forward(torch, hymba, 256, "decode")
     phase_ssm_bf16(torch, falcon, smi)
+    phase_fp32_forward(torch, phi3, 256, "prefill")
+    phi3_bf16 = phase_wide_bf16(torch, phi3, smi, 2048)
+    # mixtral's experts at the capacities of phase 10's forwards: C = 160
+    # for 512 bf16 tokens (factor 1.25), C = 64 for 64 fp32 tokens (E/k)
+    phase_moe_gmm(torch, mixtral, (("bfloat16", (160,)),
+                                   ("float32", (64,))))
+    phase_fp32_forward(torch, mixtral, 64, "decode")
+    phase_wide_bf16(torch, mixtral, smi, 512)
 
     moe_main = next(r for r in moe_rows
                     if r["C"] == 8 and r["dtype"] == "bfloat16")
-    flash_main = flash_rows[0]
+    flash_main = next(r for r in flash_rows
+                      if r["arch"] == phi3.name and r["S"] == 2048)
     ssm_main = ssm_rows[0]
     kernels = [
         {"name": "moe_gmm", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_gmm.cu",
-         "replaces": "src/repro/kernels/moe_dispatch/moe_gmm.py:46",
+         "replaces": "src/repro/kernels/moe_dispatch/moe_gmm.py:62",
          "launches": srv["cli_launches"]["moe_gmm"],
          "shape": "E=32 C=8 d=1024 f=512 bf16 (decode step)",
          "max_abs_err": moe_main["max_abs_err"], "ms": moe_main["kernel_ms"],
@@ -678,9 +745,10 @@ def main() -> int:
          "library_ms": moe_main["library_ms"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
-         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:100",
-         "launches": fwd["launches"]["flash_attention"],
-         "shape": "B=1 S=256 H=16 KV=8 dh=64 causal fp32 (forward)",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:127",
+         "launches": phi3_bf16["launches"]["flash_attention"],
+         "shape": "B=1 S=2048 H=32 KV=32 dh=96 causal bf16 (phi3-mini-3.8b "
+                  "forward, one launch per layer, tensor cores)",
          "max_abs_err": flash_main["max_abs_err"],
          "ms": flash_main["kernel_ms"], "plain_ms": flash_main["plain_ms"],
          "bound_ms": flash_main["bound_ms"],
@@ -688,7 +756,7 @@ def main() -> int:
          "library_ms": flash_main["library_ms"]},
         {"name": "ssm_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/ssm_scan.cu",
-         "replaces": "src/repro/kernels/ssm_scan/ssm_scan.py:56",
+         "replaces": "src/repro/kernels/ssm_scan/ssm_scan.py:72",
          "launches": ssm_fwd["launches"]["ssm_scan"],
          "shape": "B=1 L=256 Di=8192 N=16 fp32 (falcon-mamba-7b forward, "
                   "one launch per layer)",

@@ -4,9 +4,10 @@
 Port of the Pallas kernel ``repro/kernels/flash_attention/flash_attention.py``:
 online softmax in fp32, causal and optional sliding-window masks, the KV
 loop bounded per query tile to the key blocks that meet the triangle or
-band.  CPU tensors run the plain version (:func:`~.ref.attention_ref`);
-CUDA tensors launch the kernel or raise.  ``launches`` counts kernel
-launches.
+band.  bf16 runs on the tensor cores, fp32 on the CUDA cores; both take
+every head dim that is a multiple of 16 up to 128.  CPU tensors run the
+plain version (:func:`~.ref.attention_ref`); CUDA tensors launch the
+kernel or raise.  ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -19,7 +20,9 @@ from .ref import attention_ref
 #: kernel launches since the last reset (a plain int; callers zero it)
 launches = 0
 
-HEAD_DIMS = (16, 32, 64, 128)
+#: the head dims the kernel is built for: multiples of 16 (the bf16 k16
+#: step and 16-byte loads) up to 128
+HEAD_DIMS = tuple(range(16, 129, 16))
 MAX_GROUP = 64
 
 
@@ -40,7 +43,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: H={H} KV={KV} needs KV | H and "
                          f"H/KV <= {MAX_GROUP}")
     if dh not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {dh} not in {HEAD_DIMS}")
+        raise ValueError(f"flash_attention: head dim {dh} is not a multiple "
+                         f"of 16 up to 128 (takes {HEAD_DIMS})")
+    if code == _build.DTYPE_CODES["torch.bfloat16"] and any(
+            t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: bf16 inputs must be 16-byte "
+                         "aligned (the kernel loads 16-byte vectors)")
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out

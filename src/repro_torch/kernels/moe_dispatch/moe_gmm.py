@@ -2,7 +2,8 @@
 
 Port of the Pallas kernel ``repro/kernels/moe_dispatch/moe_gmm.py``:
 ``out[e] = (silu(buf[e]·w1[e]) ⊙ (buf[e]·w3[e]))·w2[e]`` over capacity
-buffers ``(E, C, d)``.  CPU tensors run the plain version
+buffers ``(E, C, d)``, any d (above ``MAX_D`` the output columns are
+cut into :func:`d_slices`).  CPU tensors run the plain version
 (:func:`~.ref.moe_gmm_ref`); CUDA tensors launch the kernel or raise.
 ``launches`` counts kernel launches (one per call on the card).
 """
@@ -17,7 +18,8 @@ from .ref import moe_gmm_ref
 #: kernel launches since the last reset (a plain int; callers zero it)
 launches = 0
 
-#: the kernel keeps four output columns per thread of 256
+#: output columns one block holds (four per thread of 256): the width of
+#: one d-slice
 MAX_D = 1024
 MAX_BLOCK_F = 64
 
@@ -45,6 +47,13 @@ def launch_plan(E: int, C: int, f: int, n_sms: int) -> tuple:
     return block_c, block_f, splits
 
 
+def d_slices(d: int) -> int:
+    """Output-column slices of a launch, ``ceil(d / MAX_D)``: 1 for every
+    d <= MAX_D (the kernels granite-moe runs), more for wider models
+    (mixtral-8x7b's d = 4096: 4), each slice recomputing its h tile."""
+    return -(-d // MAX_D)
+
+
 def moe_gmm(buf: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
             w2: torch.Tensor) -> torch.Tensor:
     """buf (E, C, d); w1/w3 (E, d, f); w2 (E, f, d) → (E, C, d) in buf's
@@ -59,8 +68,6 @@ def moe_gmm(buf: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
         raise ValueError(f"moe_gmm: shapes buf {tuple(buf.shape)} w1 "
                          f"{tuple(w1.shape)} w3 {tuple(w3.shape)} w2 "
                          f"{tuple(w2.shape)} do not agree")
-    if d > MAX_D:
-        raise ValueError(f"moe_gmm: d={d} exceeds the kernel's {MAX_D}")
     out = torch.empty_like(buf)
     if buf.numel() == 0:
         return out
@@ -72,7 +79,7 @@ def moe_gmm(buf: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
     rc = _build.entry("moe_gmm")(
         buf.data_ptr(), w1.data_ptr(), w3.data_ptr(), w2.data_ptr(),
         out.data_ptr(), None if scratch is None else scratch.data_ptr(),
-        E, C, d, f, block_c, block_f, splits, code, stream)
+        E, C, d, f, block_c, block_f, splits, d_slices(d), code, stream)
     _build.check("moe_gmm", rc)
     launches += 1
     return out

@@ -48,6 +48,9 @@ def _t(a, dtype, dev):
     (4, 128, 64, 128), (2, 256, 128, 256), (8, 128, 128, 384),
     (32, 8, 1024, 512), (32, 80, 1024, 512), (3, 13, 96, 96),
     (5, 37, 192, 320),
+    # past one d-slice: mixtral-8x7b's d at a short f (tensor cores in
+    # bf16), and a ragged 1152 with f-blocks of 48 (CUDA cores)
+    (8, 40, 4096, 1024), (3, 13, 1152, 96),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_moe_gmm_kernel_matches_plain(cuda, E, C, d, f, dtype):
@@ -71,6 +74,9 @@ def test_moe_gmm_kernel_matches_plain(cuda, E, C, d, f, dtype):
     (1, 256, 256, 4, 2, 64), (2, 128, 128, 8, 8, 64),
     (1, 512, 512, 4, 1, 128), (2, 256, 256, 6, 2, 128),
     (1, 2048, 2048, 16, 8, 64), (2, 77, 77, 4, 2, 16), (1, 100, 130, 4, 2, 32),
+    # phi3-mini's head dim 96 at G = 1, 2, 5, and the other multiples of 16
+    (1, 300, 300, 4, 4, 96), (2, 130, 130, 4, 2, 96), (1, 200, 200, 10, 2, 96),
+    (1, 100, 100, 4, 2, 48), (1, 129, 129, 2, 2, 80), (1, 64, 90, 2, 1, 112),
 ])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -117,6 +123,57 @@ def test_flash_attention_kernel_hymba_group_of_five(cuda, S, window, dtype):
                                rtol=_tol(dt))
 
 
+@pytest.mark.parametrize("H,KV", [(8, 8), (8, 4), (10, 2)])
+@pytest.mark.parametrize("window", [64, 200])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_head_dim_96_window(cuda, H, KV, window,
+                                                   dtype):
+    """phi3-mini's head dim under a sliding window (G = 1, 2, 5), ragged
+    S: the band's lower edge and the diagonal in one tile."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(6)
+    q = _t(rng.normal(size=(1, 700, H, 96)), dt, cuda)
+    k = _t(rng.normal(size=(1, 700, KV, 96)), dt, cuda)
+    v = _t(rng.normal(size=(1, 700, KV, 96)), dt, cuda)
+    out = FA.flash_attention(q, k, v, causal=True, window=window)
+    ref = attention_ref(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(out.float(), ref.float(), atol=_tol(dt),
+                               rtol=_tol(dt))
+
+
+def test_moe_gmm_granite_launches_unchanged(cuda):
+    """granite-moe-1b's launches (d = 1024) keep the one-slice kernels and
+    their tile plan, and give bitwise the same output on every call."""
+    cfg = get_config("granite-moe-1b-a400m")
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    assert MG.d_slices(d) == 1
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert MG.launch_plan(E, 8, f, n_sms)[:2] == (8, 64)
+    assert MG.launch_plan(E, 80, f, n_sms)[:2] == (16, 64)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for dt in (torch.bfloat16, torch.float32):
+        w1 = (torch.randn(E, d, f, generator=gen, device=cuda) * d ** -0.5).to(dt)
+        w3 = (torch.randn(E, d, f, generator=gen, device=cuda) * d ** -0.5).to(dt)
+        w2 = (torch.randn(E, f, d, generator=gen, device=cuda) * f ** -0.5).to(dt)
+        for C in (8, 80):
+            buf = torch.randn(E, C, d, generator=gen, device=cuda).to(dt)
+            a = MG.moe_gmm(buf, w1, w3, w2)
+            b = MG.moe_gmm(buf, w1, w3, w2)
+            assert torch.equal(a, b)
+            tol = _tol(dt) * 5
+            torch.testing.assert_close(a.float(), moe_gmm_ref(
+                buf, w1, w3, w2).float(), atol=tol, rtol=tol)
+
+
+def test_flash_attention_refuses_unaligned_bf16(cuda):
+    q = torch.zeros((1, 16 * 4 * 64 + 1), device=cuda,
+                    dtype=torch.bfloat16)[:, 1:].reshape(1, 16, 4, 64)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    kv = torch.zeros((1, 16, 2, 64), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        FA.flash_attention(q, kv, kv)
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     x = torch.zeros((2, 8, 64), device=cuda)
     w = torch.zeros((2, 64, 32), device=cuda)
@@ -127,7 +184,7 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         MG.moe_gmm(x, w.cpu(), w, w2)
     with pytest.raises(ValueError):
         MG.moe_gmm(x.transpose(1, 2).contiguous().transpose(1, 2), w, w, w2)
-    q = torch.zeros((1, 16, 4, 48), device=cuda)
+    q = torch.zeros((1, 16, 4, 100), device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         FA.flash_attention(q, q[:, :, :2].contiguous(),
                            q[:, :, :2].contiguous())
@@ -161,6 +218,29 @@ def test_forward_and_serving_steps_match_cpu(cuda, arch):
         outs.append((logits.cpu(), cache["layers"]["k"].cpu()))
     torch.testing.assert_close(outs[1][0], outs[0][0], atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(outs[1][1], outs[0][1], atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("phi3-mini-3.8b", {"d_model": 192, "n_heads": 2, "n_kv_heads": 2}),
+    ("mixtral-8x7b", {"d_model": 1152, "n_heads": 12, "n_kv_heads": 4}),
+])
+def test_wide_models_forward_matches_cpu(cuda, arch, kw):
+    """phi3-mini at head dim 96 and mixtral at head dim 96 with d = 1152
+    (two d-slices of ``moe_gmm``), 48 tokens across mixtral's 32-token
+    window: the card's forward (both kernels) agrees with the CPU's
+    plain path in fp32."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32",
+                              **kw)
+    p_cpu = TM.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    p_gpu = _to(p_cpu, cuda)
+    toks = np.random.default_rng(8).integers(0, cfg.vocab, size=(2, 48))
+    n_fa, n_mg = FA.launches, MG.launches
+    lg = TM.forward(p_gpu, cfg, {"tokens": torch.tensor(toks, device=cuda)})
+    assert FA.launches == n_fa + cfg.n_layers
+    assert MG.launches == n_mg + (cfg.n_layers if cfg.n_experts else 0)
+    lc = TM.forward(p_cpu, cfg, {"tokens": torch.tensor(toks)})
+    torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
 
 
 def _to(tree, dev):
