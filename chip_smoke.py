@@ -15,11 +15,14 @@ top-2 of width 14336, window 4096; 2 of its 32 layers, since its 93 GB
 of bf16 weights exceed the card):
 
 1. ``card``: the card's name and power limit from ``nvidia-smi``.
-2. ``moe_gmm``: the kernel against its plain PyTorch version at the
-   serving shapes (E=32, d=1024, f=512, C=8 per decode step and C=80 per
-   prefill round), bf16 and fp32, with times of the kernel, the plain
-   version and a ``torch.bmm`` chain, and the least time the card could
-   take for the same work.
+2. ``moe_gmm``: the kernel pair against its plain PyTorch version at the
+   serving shapes (E=32, d=1024, f=512, C=8 per decode step, C=80 per
+   prefill round, C=256 per 256-token forward), bf16 and fp32, with each
+   row's launch plan (tiles, ring depth, K splits), times of the kernels,
+   the plain version and a ``torch.bmm`` chain, and the least time the
+   card could take for the same work (fp32: three TF32 products per
+   product on the tensor cores; the CUDA cores' 67 TFLOP/s bound beside
+   it).
 3. ``flash_attention``: the same at (B=1, S=2048, H=16, KV=8, dh=64),
    causal and with a 256 window, bf16 and fp32, at hymba's shape
    (H=25, KV=5, window 1024) for S=256 fp32 and S=2048 bf16, at
@@ -55,8 +58,8 @@ of bf16 weights exceed the card):
    ``wide_bf16``, one timed bf16 2048-token forward with exactly 32
    launches (tensor-core path), tokens/s and peak device memory.
 10. mixtral-8x7b, 2 layers: ``moe_gmm`` at its expert shape (E=8,
-    d=4096 in four d-slices, f=14336) against its plain version and the
-    ``torch.bmm`` chain, bf16 at C=160 and fp32 at C=64;
+    d=4096, f=14336) against its plain version and the ``torch.bmm``
+    chain, bf16 at C=8 (a decode step) and C=160, fp32 at C=64;
     ``fp32_forward`` over 64 tokens (capacity factor E / top_k) against
     the same tokens fed one by one through ``decode_step`` (prefill
     refuses sliding-window caches); ``wide_bf16``, one timed 512-token
@@ -91,9 +94,10 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 SEED = 0
 
-# H100 SXM data-sheet peaks (dense): bytes/s of HBM3, FLOP/s per type.
+# H100 SXM data-sheet peaks (dense): bytes/s of HBM3, FLOP/s per type
+# (float32: the CUDA cores; tf32: the tensor cores).
 HBM_BPS = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 
 
 def emit(obj: dict) -> None:
@@ -144,6 +148,7 @@ def phase_moe_gmm(torch, cfg, plan) -> list:
     from repro_torch.kernels.moe_dispatch.ref import moe_gmm_ref
 
     E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
     for dtype, caps in plan:
@@ -168,17 +173,24 @@ def phase_moe_gmm(torch, cfg, plan) -> list:
                 return torch.bmm(h, w2)
             esz = buf.element_size()
             nbytes = (2 * E * C * d + 3 * E * d * f) * esz
-            b_ms, b_by = bound(nbytes, 6 * E * C * d * f, dtype)
+            flops = 6 * E * C * d * f
+            # fp32 runs as three TF32 products on the tensor cores (3xTF32)
+            b_ms, b_by = bound(nbytes, 3 * flops, "tf32") \
+                if dtype == "float32" else bound(nbytes, flops, dtype)
+            launch = MG.launch_plan(E, C, d, f, dt, n_sms)
             row = {"phase": "moe_gmm", "arch": cfg.name, "E": E, "C": C,
-                   "d": d, "f": f, "d_slices": MG.d_slices(d),
-                   "dtype": dtype, "max_abs_err": err, "atol": tol,
-                   "rtol": tol,
+                   "d": d, "f": f, "dtype": dtype,
+                   "plan": {k: g._asdict() for k, g in
+                            launch._asdict().items()},
+                   "max_abs_err": err, "atol": tol, "rtol": tol,
                    "kernel_ms": time_ms(torch, lambda: MG.moe_gmm(
                        buf, w1, w3, w2), 20),
                    "plain_ms": time_ms(torch, lambda: moe_gmm_ref(
                        buf, w1, w3, w2), 5),
                    "library_ms": time_ms(torch, library, 20),
                    "bound_ms": b_ms, "bound_by": b_by}
+            if dtype == "float32":
+                row["bound_cuda_cores_ms"] = bound(nbytes, flops, dtype)[0]
             emit(row)
             rows.append(row)
             del buf, out
@@ -697,8 +709,8 @@ def main() -> int:
     # 80 GB: 2 of its 32 layers at published widths, the one reduction
     mixtral = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=2)
     # granite: C = 8, a decode step of 8 slots; C = 80, a prefill round of
-    # 8 x 32 tokens; C = 256 (fp32), the 256-token forward of phase 4
-    moe_rows = phase_moe_gmm(torch, cfg, (("bfloat16", (8, 80)),
+    # 8 x 32 tokens; C = 256, the 256-token forward of phase 4
+    moe_rows = phase_moe_gmm(torch, cfg, (("bfloat16", (8, 80, 256)),
                                           ("float32", (8, 80, 256))))
     # granite: S = 256 fp32 causal is the forward of phase 4, S = 2048 a
     # long prompt; hymba (G = 5, window 1024): S = 256 fp32 is the forward
@@ -721,9 +733,10 @@ def main() -> int:
     phase_ssm_bf16(torch, falcon, smi)
     phase_fp32_forward(torch, phi3, 256, "prefill")
     phi3_bf16 = phase_wide_bf16(torch, phi3, smi, 2048)
-    # mixtral's experts at the capacities of phase 10's forwards: C = 160
-    # for 512 bf16 tokens (factor 1.25), C = 64 for 64 fp32 tokens (E/k)
-    phase_moe_gmm(torch, mixtral, (("bfloat16", (160,)),
+    # mixtral's experts at the capacities of phase 10's runs: C = 8 for a
+    # decode step, C = 160 for 512 bf16 tokens (factor 1.25), C = 64 for
+    # 64 fp32 tokens (E/k)
+    phase_moe_gmm(torch, mixtral, (("bfloat16", (8, 160)),
                                    ("float32", (64,))))
     phase_fp32_forward(torch, mixtral, 64, "decode")
     phase_wide_bf16(torch, mixtral, smi, 512)

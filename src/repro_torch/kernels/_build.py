@@ -12,7 +12,9 @@ checkout are compiled; nothing is fetched.  :func:`build_all` starts one
 ``nvcc`` per source at once (a cold start builds every kernel in the time
 of the slowest).  Pointer and stream arguments are ``c_void_p`` and every
 entry point returns ``cudaGetLastError()``; :func:`check` raises on a
-non-zero code, so a refused launch never passes silently.
+non-zero code, so a refused launch never passes silently.  No kernel
+has a backward yet: :func:`refuse_grad` makes each wrapper say so rather
+than return a result without a gradient.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -35,7 +39,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "moe_gmm": ("moe_gmm_launch",
-                [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                  _P]),
     "flash_attention": ("flash_attention_launch",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -152,6 +156,17 @@ def cuda_inputs(name: str, *tensors) -> int:
         raise TypeError(f"{name}: the kernel takes float32 or bfloat16, "
                         f"not {dt}")
     return code
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when grad mode is on and an input requires grad: the CUDA
+    kernels have no backward yet (ROADMAP Queue 1 item 8, training), and
+    a result filled through ``ctypes`` would silently carry none."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward yet (ROADMAP Queue 1 "
+            f"item 8, training); call it under torch.no_grad() or on "
+            f"tensors that do not require grad")
 
 
 def all_on_cpu(*tensors) -> bool:

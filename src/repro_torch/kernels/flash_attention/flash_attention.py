@@ -33,6 +33,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     global launches
     if _build.all_on_cpu(q, k, v):
         return attention_ref(q, k, v, causal=causal, window=window)
+    _build.refuse_grad("flash_attention", q, k, v)
     code = _build.cuda_inputs("flash_attention", q, k, v)
     B, S, H, dh = q.shape
     T, KV = k.shape[1], k.shape[2]

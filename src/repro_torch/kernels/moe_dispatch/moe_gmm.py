@@ -1,57 +1,118 @@
-"""Grouped expert SwiGLU FFN: wrapper of the CUDA kernel ``csrc/moe_gmm.cu``.
+"""Grouped expert SwiGLU FFN: wrapper of the CUDA kernels ``csrc/moe_gmm.cu``.
 
 Port of the Pallas kernel ``repro/kernels/moe_dispatch/moe_gmm.py``:
 ``out[e] = (silu(buf[e]·w1[e]) ⊙ (buf[e]·w3[e]))·w2[e]`` over capacity
-buffers ``(E, C, d)``, any d (above ``MAX_D`` the output columns are
-cut into :func:`d_slices`).  CPU tensors run the plain version
-(:func:`~.ref.moe_gmm_ref`); CUDA tensors launch the kernel or raise.
-``launches`` counts kernel launches (one per call on the card).
+buffers ``(E, C, d)``, any C, d and f multiples of 8.  On the card one
+call runs two grouped GEMMs, gate-up into a scratch ``h (E, C, f)`` and
+down into the output, with the tiles, ring depth and K splits of
+:func:`launch_plan`.  CPU tensors run the plain version
+(:func:`~.ref.moe_gmm_ref`); CUDA tensors launch the kernels or raise.
+``launches`` counts wrapper calls that launched (one per call on the
+card, however many kernels it issues).
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
 from .. import _build
 from .ref import moe_gmm_ref
 
-#: kernel launches since the last reset (a plain int; callers zero it)
+#: calls that launched the kernels since the last reset (a plain int;
+#: callers zero it)
 launches = 0
 
-#: output columns one block holds (four per thread of 256): the width of
-#: one d-slice
-MAX_D = 1024
-MAX_BLOCK_F = 64
+#: weight columns of one tile: 64 of w1 beside the same 64 of w3 (gate-up),
+#: or 128 of w2 (down)
+WEIGHT_COLS = 128
+#: the C-row tiles built, each with its ring depth (``MOE_GMM_TILES`` in
+#: the source): deeper rings for the small tiles, which are bound by bytes
+STAGES = {32: 8, 64: 6, 128: 4}
+#: K per ring slot: 64 bytes of bf16 or fp32
+BLOCK_K = {torch.bfloat16: 32, torch.float32: 16}
+#: blocks resident per SM (the kernels' launch bounds)
+BLOCKS_PER_SM = 2
 
 
-def _tile(n: int, cap: int = 128) -> int:
-    """Largest block size ≤ cap that divides n (n ≥ 1 ⇒ always exists)."""
-    for b in range(min(cap, n), 0, -1):
-        if n % b == 0:
-            return b
-    return 1
+class GemmPlan(NamedTuple):
+    """One of the two launches: output tile ``block_m × block_n``, K step
+    ``block_k``, ring depth, K splits and grid ``(C tiles × N tiles, E,
+    splits)``."""
+
+    block_m: int
+    block_n: int
+    block_k: int
+    stages: int
+    splits: int
+    grid: tuple
 
 
-def launch_plan(E: int, C: int, f: int, n_sms: int) -> tuple:
-    """(block_c, block_f, f_splits) for a launch: an 8-row C tile when the
-    capacity fits it (decode), else 16; the widest f-block ≤ 64 dividing
-    f; and the f range split in two until the grid covers the SMs twice
-    (splits must divide the f-block count)."""
-    block_c = 8 if C <= 8 else 16
-    block_f = _tile(f, MAX_BLOCK_F)
-    nf = f // block_f
-    tiles = -(-C // block_c)
+class LaunchPlan(NamedTuple):
+    gate_up: GemmPlan
+    down: GemmPlan
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def block_m(C: int, dtype: torch.dtype) -> int:
+    """The C tile: the smallest built tile that holds C, or for C > 64 the
+    one of 64 and 128 that pads C least (128 on a tie, which reads each
+    weight tile fewer times).  fp32 stops at 64, since its per-slot
+    partial sums double the accumulator registers."""
+    if C <= 64 or dtype == torch.float32:
+        return 32 if C <= 32 else 64
+    return 128 if _cdiv(C, 128) * 128 <= _cdiv(C, 64) * 64 else 64
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(E: int, C: int, d: int, f: int, dtype: torch.dtype,
+                n_sms: int) -> LaunchPlan:
+    """The plan of both kernels for one shape.  gate-up: ``block_m`` rows ×
+    64 columns of h over K = d; down: ``block_m`` × 128 columns of out over
+    K = f, its K tiles split in two until the grid fills the card's block
+    slots (each split keeps at least two rings of K tiles, and the splits
+    divide the K tiles)."""
+    bm, bk = block_m(C, dtype), BLOCK_K[dtype]
+    m_tiles = _cdiv(C, bm)
+    bn_gu, bn_dn = WEIGHT_COLS // 2, WEIGHT_COLS
+    stages = STAGES[bm]
+    gate_up = GemmPlan(bm, bn_gu, bk, stages, 1,
+                       (m_tiles * _cdiv(f, bn_gu), E, 1))
+    blocks = m_tiles * _cdiv(d, bn_dn) * E
+    k_tiles = _cdiv(f, bk)
     splits = 1
-    while E * tiles * splits < 2 * n_sms and nf % (2 * splits) == 0:
+    while (2 * splits * blocks <= BLOCKS_PER_SM * n_sms
+           and k_tiles % (2 * splits) == 0
+           and k_tiles // (2 * splits) >= 2 * stages):
         splits *= 2
-    return block_c, block_f, splits
+    down = GemmPlan(bm, bn_dn, bk, stages, splits,
+                    (m_tiles * _cdiv(d, bn_dn), E, splits))
+    return LaunchPlan(gate_up, down)
 
 
-def d_slices(d: int) -> int:
-    """Output-column slices of a launch, ``ceil(d / MAX_D)``: 1 for every
-    d <= MAX_D (the kernels granite-moe runs), more for wider models
-    (mixtral-8x7b's d = 4096: 4), each slice recomputing its h tile."""
-    return -(-d // MAX_D)
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _check_shapes(buf, w1, w3, w2) -> tuple:
+    E, C, d = buf.shape
+    f = w1.shape[-1]
+    if w1.shape != (E, d, f) or w3.shape != (E, d, f) or w2.shape != (E, f, d):
+        raise ValueError(f"moe_gmm: shapes buf {tuple(buf.shape)} w1 "
+                         f"{tuple(w1.shape)} w3 {tuple(w3.shape)} w2 "
+                         f"{tuple(w2.shape)} do not agree")
+    if d % 8 or f % 8:
+        raise ValueError(f"moe_gmm: d={d} and f={f} must be multiples of 8 "
+                         f"(the kernels move 16-byte vectors of rows)")
+    if any(t.data_ptr() % 16 for t in (buf, w1, w3, w2)):
+        raise ValueError("moe_gmm: inputs must be 16-byte aligned")
+    return E, C, d, f
 
 
 def moe_gmm(buf: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
@@ -61,25 +122,30 @@ def moe_gmm(buf: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
     global launches
     if _build.all_on_cpu(buf, w1, w3, w2):
         return moe_gmm_ref(buf, w1, w3, w2)
+    _build.refuse_grad("moe_gmm", buf, w1, w3, w2)
     code = _build.cuda_inputs("moe_gmm", buf, w1, w3, w2)
-    E, C, d = buf.shape
-    f = w1.shape[-1]
-    if w1.shape != (E, d, f) or w3.shape != (E, d, f) or w2.shape != (E, f, d):
-        raise ValueError(f"moe_gmm: shapes buf {tuple(buf.shape)} w1 "
-                         f"{tuple(w1.shape)} w3 {tuple(w3.shape)} w2 "
-                         f"{tuple(w2.shape)} do not agree")
+    E, C, d, f = _check_shapes(buf, w1, w3, w2)
     out = torch.empty_like(buf)
     if buf.numel() == 0:
         return out
-    n_sms = torch.cuda.get_device_properties(buf.device).multi_processor_count
-    block_c, block_f, splits = launch_plan(E, C, f, n_sms)
+    plan = launch_plan(E, C, d, f, buf.dtype, _sm_count(buf.device.index))
+    run_plan(buf, w1, w3, w2, out, plan, code)
+    launches += 1
+    return out
+
+
+def run_plan(buf, w1, w3, w2, out, plan: LaunchPlan, code: int) -> None:
+    """Launch both kernels under ``plan`` (inputs already checked)."""
+    E, C, d = buf.shape
+    f = w1.shape[-1]
+    h = torch.empty((E, C, f), dtype=buf.dtype, device=buf.device)
+    splits = plan.down.splits
     scratch = (torch.empty(splits * E * C * d, dtype=torch.float32,
                            device=buf.device) if splits > 1 else None)
     stream = torch.cuda.current_stream(buf.device).cuda_stream
     rc = _build.entry("moe_gmm")(
         buf.data_ptr(), w1.data_ptr(), w3.data_ptr(), w2.data_ptr(),
-        out.data_ptr(), None if scratch is None else scratch.data_ptr(),
-        E, C, d, f, block_c, block_f, splits, d_slices(d), code, stream)
+        h.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        E, C, d, f, plan.down.block_m, plan.down.stages, splits, code, stream)
     _build.check("moe_gmm", rc)
-    launches += 1
-    return out

@@ -31,6 +31,7 @@ def ssm_scan(dA: torch.Tensor, dBx: torch.Tensor, C: torch.Tensor,
     given = [t for t in (dA, dBx, C, h0) if t is not None]
     if _build.all_on_cpu(*given):
         return ssm_scan_ref(dA, dBx, C, h0)
+    _build.refuse_grad("ssm_scan", *given)
     if _build.cuda_inputs("ssm_scan", *given) != 0:
         raise TypeError(f"ssm_scan: the kernel takes float32 only, not "
                         f"{dA.dtype}")

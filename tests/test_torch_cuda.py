@@ -48,9 +48,11 @@ def _t(a, dtype, dev):
     (4, 128, 64, 128), (2, 256, 128, 256), (8, 128, 128, 384),
     (32, 8, 1024, 512), (32, 80, 1024, 512), (3, 13, 96, 96),
     (5, 37, 192, 320),
-    # past one d-slice: mixtral-8x7b's d at a short f (tensor cores in
-    # bf16), and a ragged 1152 with f-blocks of 48 (CUDA cores)
+    # d past 1024: mixtral-8x7b's d at a short f, and a ragged 1152
     (8, 40, 4096, 1024), (3, 13, 1152, 96),
+    # mixtral-8x7b's expert widths at E = 2: one token, a decode step
+    # (the down kernel's K split four ways) and the bf16 forward's C = 160
+    (2, 1, 4096, 14336), (2, 8, 4096, 14336), (2, 160, 4096, 14336),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_moe_gmm_kernel_matches_plain(cuda, E, C, d, f, dtype):
@@ -142,16 +144,20 @@ def test_flash_attention_kernel_head_dim_96_window(cuda, H, KV, window,
 
 
 def test_moe_gmm_granite_launches_unchanged(cuda):
-    """granite-moe-1b's launches (d = 1024) keep the one-slice kernels and
-    their tile plan, and give bitwise the same output on every call."""
+    """granite-moe-1b's launches (d = 1024) at the decode step (C = 8:
+    32-row tiles, K unsplit) and the prefill round (C = 80: one 128-row
+    tile in bf16, two of 64 rows in fp32), within the plain version's
+    tolerance and bitwise the same on every call."""
     cfg = get_config("granite-moe-1b-a400m")
     E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
-    assert MG.d_slices(d) == 1
     n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    assert MG.launch_plan(E, 8, f, n_sms)[:2] == (8, 64)
-    assert MG.launch_plan(E, 80, f, n_sms)[:2] == (16, 64)
     gen = torch.Generator(device=cuda).manual_seed(0)
     for dt in (torch.bfloat16, torch.float32):
+        assert MG.launch_plan(E, 8, d, f, dt, n_sms).down[:5] == (
+            32, 128, MG.BLOCK_K[dt], MG.STAGES[32], 1)
+        m_tiles = 1 if dt == torch.bfloat16 else 2
+        assert MG.launch_plan(E, 80, d, f, dt, n_sms).gate_up.grid == (
+            m_tiles * f // 64, E, 1)
         w1 = (torch.randn(E, d, f, generator=gen, device=cuda) * d ** -0.5).to(dt)
         w3 = (torch.randn(E, d, f, generator=gen, device=cuda) * d ** -0.5).to(dt)
         w2 = (torch.randn(E, f, d, generator=gen, device=cuda) * f ** -0.5).to(dt)
@@ -163,6 +169,51 @@ def test_moe_gmm_granite_launches_unchanged(cuda):
             tol = _tol(dt) * 5
             torch.testing.assert_close(a.float(), moe_gmm_ref(
                 buf, w1, w3, w2).float(), atol=tol, rtol=tol)
+
+
+def test_moe_gmm_split_k_is_bitwise_repeatable(cuda):
+    """A down kernel with K split (mixtral's widths at E = 2, C = 8) sums
+    its splits in a fixed order: the same bits on every call."""
+    E, C, d, f = 2, 8, 4096, 14336
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for dt in (torch.bfloat16, torch.float32):
+        assert MG.launch_plan(E, C, d, f, dt, n_sms).down.splits > 1
+        w1 = (torch.randn(E, d, f, generator=gen, device=cuda) * d ** -0.5).to(dt)
+        w3 = (torch.randn(E, d, f, generator=gen, device=cuda) * d ** -0.5).to(dt)
+        w2 = (torch.randn(E, f, d, generator=gen, device=cuda) * f ** -0.5).to(dt)
+        buf = torch.randn(E, C, d, generator=gen, device=cuda).to(dt)
+        outs = [MG.moe_gmm(buf, w1, w3, w2) for _ in range(3)]
+        assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+def test_kernels_refuse_inputs_that_require_grad(cuda):
+    """No CUDA kernel has a backward yet: in grad mode each wrapper raises
+    for an input that requires grad, naming ROADMAP Queue 1 item 8; under
+    no_grad, or without grad, it launches."""
+    x = torch.randn((2, 8, 64), device=cuda)
+    w = torch.randn((2, 64, 32), device=cuda)
+    w2 = torch.randn((2, 32, 64), device=cuda)
+    q = torch.randn((1, 16, 4, 64), device=cuda)
+    kv = torch.randn((1, 16, 2, 64), device=cuda)
+    dA = torch.rand((1, 8, 16, 4), device=cuda)
+    C = torch.randn((1, 8, 4), device=cuda)
+    calls = {
+        "moe_gmm": (MG.moe_gmm, (x, w, w, w2)),
+        "flash_attention": (FA.flash_attention, (q, kv, kv)),
+        "ssm_scan": (SS.ssm_scan, (dA, dA, C)),
+    }
+    for name, (fn, args) in calls.items():
+        for i in range(len(args)):
+            grad_args = [a.clone().requires_grad_(j == i)
+                         for j, a in enumerate(args)]
+            with pytest.raises(RuntimeError,
+                               match=f"{name}.*Queue 1 item 8"):
+                fn(*grad_args)
+            with torch.no_grad():
+                fn(*grad_args)
+        fn(*args)
+    torch.cuda.synchronize()
 
 
 def test_flash_attention_refuses_unaligned_bf16(cuda):
@@ -226,7 +277,7 @@ def test_forward_and_serving_steps_match_cpu(cuda, arch):
 ])
 def test_wide_models_forward_matches_cpu(cuda, arch, kw):
     """phi3-mini at head dim 96 and mixtral at head dim 96 with d = 1152
-    (two d-slices of ``moe_gmm``), 48 tokens across mixtral's 32-token
+    (``moe_gmm`` past d = 1024), 48 tokens across mixtral's 32-token
     window: the card's forward (both kernels) agrees with the CPU's
     plain path in fp32."""
     cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32",

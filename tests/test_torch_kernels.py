@@ -90,11 +90,114 @@ def test_flash_attention_window_matches_reference(window):
     _close(out, j_attention(q, k, v, causal=True, window=window), 2e-5)
 
 
+# The expert shapes the plan is held to: granite-moe-1b-a400m (E 32, d 1024,
+# f 512) per decode step, prefill round and 256-token forward; mixtral-8x7b
+# (E 8, d 4096, f 14336) per decode step, fp32 forward and bf16 forward, and
+# at E 2 for the card tests; and the ragged shapes of tests/test_torch_cuda.py
+PLAN_SHAPES = [
+    (32, 8, 1024, 512), (32, 80, 1024, 512), (32, 256, 1024, 512),
+    (8, 8, 4096, 14336), (8, 64, 4096, 14336), (8, 160, 4096, 14336),
+    (2, 1, 4096, 14336), (2, 8, 4096, 14336), (2, 160, 4096, 14336),
+    (4, 128, 64, 128), (2, 256, 128, 256), (8, 128, 128, 384),
+    (3, 13, 96, 96), (5, 37, 192, 320), (8, 40, 4096, 1024),
+    (3, 13, 1152, 96), (2, 8, 2048, 64),
+]
+
+
 def test_moe_gmm_launch_plan():
-    """The launch plan the wrapper hands the CUDA kernel at granite-moe
-    width: an 8-row tile at decode (C=8) split over f to fill 132 SMs, a
-    16-row tile per prefill round (C=80), and f-blocks dividing f."""
-    assert MG.launch_plan(32, 8, 512, 132) == (8, 64, 8)
-    assert MG.launch_plan(32, 80, 512, 132) == (16, 64, 2)
-    bc, bf, splits = MG.launch_plan(4, 128, 96, 132)
-    assert 96 % bf == 0 and bf <= MG.MAX_BLOCK_F and (96 // bf) % splits == 0
+    """The two-kernel plan at every shape above, bf16 and fp32, on 132
+    SMs: the C tiles cover C, the f tiles of gate-up and the d tiles of
+    down cover f and d, tile widths and K steps are multiples of 8, each
+    weight tile is read once per C tile (ceil(C / BM) times), each ring
+    fits two blocks per SM, and K splits divide the down kernel's K tiles.
+    Pinned: granite decode takes 32-row tiles unsplit; its prefill round
+    and forward 128-row tiles in bf16 and 64-row tiles in fp32 (whose
+    accumulators take twice the registers); mixtral's bf16 forward (C =
+    160) 64-row tiles."""
+    smem_per_sm = 232448
+    for E, C, d, f in PLAN_SHAPES:
+        for dt in (torch.bfloat16, torch.float32):
+            plan = MG.launch_plan(E, C, d, f, dt, 132)
+            gu, dn = plan.gate_up, plan.down
+            bm = gu.block_m
+            m_tiles = -(-C // bm)
+            assert dn.block_m == bm and bm in MG.STAGES
+            assert bm <= 64 or dt == torch.bfloat16
+            assert bm * m_tiles >= C and bm * (m_tiles - 1) < C
+            for g, n, k in ((gu, f, d), (dn, d, f)):
+                n_tiles = -(-n // g.block_n)
+                assert g.block_n % 8 == 0 and g.block_k % 8 == 0
+                assert g.block_n * n_tiles >= n
+                # one block per (C tile, N tile, expert, split): each weight
+                # tile is read by m_tiles = ceil(C / BM) blocks per split
+                assert g.grid == (m_tiles * n_tiles, E, g.splits)
+                k_tiles = -(-k // g.block_k)
+                assert k_tiles % g.splits == 0
+                assert g.stages == MG.STAGES[bm]
+                esize = 2 if dt == torch.bfloat16 else 4
+                ring = g.stages * (bm * (g.block_k + 16 // esize)
+                                   + g.block_k * (MG.WEIGHT_COLS + 8)) * esize
+                assert MG.BLOCKS_PER_SM * ring <= smem_per_sm
+            assert gu.splits == 1            # SwiGLU needs whole sums
+            assert gu.block_n * 2 == dn.block_n == MG.WEIGHT_COLS
+    for dt in (torch.bfloat16, torch.float32):
+        assert MG.launch_plan(32, 8, 1024, 512, dt, 132).down[:5] == \
+            (32, 128, MG.BLOCK_K[dt], 8, 1)
+    for C in (80, 256):
+        assert MG.launch_plan(32, C, 1024, 512, torch.bfloat16,
+                              132).down.block_m == 128
+        assert MG.launch_plan(32, C, 1024, 512, torch.float32,
+                              132).down.block_m == 64
+    assert MG.launch_plan(8, 160, 4096, 14336, torch.bfloat16,
+                          132).down.block_m == 64
+    # a small grid splits the down kernel's K: mixtral's widths at E 2
+    assert MG.launch_plan(2, 8, 4096, 14336, torch.bfloat16,
+                          132).down.splits == 4
+
+
+def test_moe_gmm_refuses_shapes_off_the_8_grid():
+    """d and f must be multiples of 8: the wrapper names the shape."""
+    for d, f in ((12, 16), (16, 20)):
+        buf = torch.zeros(2, 3, d)
+        w = torch.zeros(2, d, f)
+        with pytest.raises(ValueError, match=f"d={d} and f={f}"):
+            MG._check_shapes(buf, w, w, torch.zeros(2, f, d))
+    MG._check_shapes(torch.zeros(2, 3, 16), torch.zeros(2, 16, 24),
+                     torch.zeros(2, 16, 24), torch.zeros(2, 24, 16))
+
+
+def test_refuse_grad():
+    """The CUDA wrappers' guard: it raises in grad mode for an input that
+    requires grad (naming the kernel and ROADMAP Queue 1 item 8), passes
+    under no_grad, and passes for tensors that do not require grad."""
+    from repro_torch.kernels import _build
+
+    w = torch.zeros(3, requires_grad=True)
+    x = torch.zeros(3)
+    with pytest.raises(RuntimeError, match="moe_gmm.*Queue 1 item 8"):
+        _build.refuse_grad("moe_gmm", x, w)
+    with torch.no_grad():
+        _build.refuse_grad("moe_gmm", x, w)
+    _build.refuse_grad("moe_gmm", x, x)
+    _build.refuse_grad("moe_gmm", w.detach())
+
+
+def test_plain_versions_stay_differentiable_on_cpu():
+    """On CPU tensors the wrappers run their plain versions, which autograd
+    differentiates: the refusal is the CUDA branch's alone."""
+    rng = np.random.default_rng(7)
+    E, C, d, f = 2, 5, 16, 24
+    buf, w1, w3 = (torch.tensor(rng.normal(size=s), dtype=torch.float32,
+                                requires_grad=True)
+                   for s in ((E, C, d), (E, d, f), (E, d, f)))
+    w2 = torch.tensor(rng.normal(size=(E, f, d)), dtype=torch.float32,
+                      requires_grad=True)
+    MG.moe_gmm(buf, w1, w3, w2).square().sum().backward()
+    q = torch.tensor(rng.normal(size=(1, 8, 2, 16)), dtype=torch.float32,
+                     requires_grad=True)
+    kv = torch.tensor(rng.normal(size=(1, 8, 1, 16)), dtype=torch.float32,
+                      requires_grad=True)
+    FA.flash_attention(q, kv, kv).sum().backward()
+    for t in (buf, w1, w3, w2, q, kv):
+        assert t.grad is not None and bool(torch.isfinite(t.grad).all())
+        assert float(t.grad.abs().sum()) > 0

@@ -201,14 +201,13 @@ def test_attention_head_dim_96_matches_reference(H, KV, causal, window,
 @pytest.mark.parametrize("E,C,d,f", [(3, 13, 1152, 96), (2, 8, 2048, 64)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_moe_gmm_wide_d_matches_reference(E, C, d, f, dtype):
-    """The plain version past one d-slice (d > MAX_D)."""
+    """The plain version at d past 1024 (mixtral-8x7b's d is 4096)."""
     jdt, tol = DTYPES[dtype]
     rng = np.random.default_rng(10)
     buf, tbuf = _pair(rng.normal(size=(E, C, d)) * 0.5, jdt)
     w1, tw1 = _pair(rng.normal(size=(E, d, f)) * d ** -0.5, jdt)
     w3, tw3 = _pair(rng.normal(size=(E, d, f)) * d ** -0.5, jdt)
     w2, tw2 = _pair(rng.normal(size=(E, f, d)) * f ** -0.5, jdt)
-    assert MG.d_slices(d) > 1
     n0 = MG.launches
     out = MG.moe_gmm(tbuf, tw1, tw3, tw2)
     assert MG.launches == n0
@@ -219,14 +218,22 @@ def test_moe_gmm_wide_d_matches_reference(E, C, d, f, dtype):
 
 
 def test_moe_gmm_d_slices():
-    """One slice up to MAX_D (granite-moe's d = 1024 keeps its kernels),
-    then one more per MAX_D columns (mixtral-8x7b's d = 4096: 4)."""
-    assert MG.MAX_D == 1024
-    assert [MG.d_slices(d) for d in (64, 96, 1000, 1024)] == [1, 1, 1, 1]
-    assert [MG.d_slices(d) for d in (1025, 1152, 2048, 3072, 4096, 6144)] \
-        == [2, 2, 2, 3, 4, 6]
-    for arch, slices in (("granite-moe-1b-a400m", 1), ("mixtral-8x7b", 4)):
-        assert MG.d_slices(t_get_config(arch).d_model) == slices
+    """What replaced the d-slices: one launch plan covers every d of the
+    MoE configs (granite-moe 1024, mixtral-8x7b 4096) whole.  The gate-up
+    kernel takes all of d as its K, unsplit, and the down kernel's tiles
+    cover d's columns in one grid, at every capacity the port runs."""
+    assert not hasattr(MG, "d_slices") and not hasattr(MG, "MAX_D")
+    for arch in ("granite-moe-1b-a400m", "mixtral-8x7b"):
+        c = t_get_config(arch)
+        E, d, f = c.n_experts, c.d_model, c.d_ff
+        for C in (1, 8, 64, 80, 160, 256):
+            for dt in (torch.bfloat16, torch.float32):
+                gu, dn = MG.launch_plan(E, C, d, f, dt, 132)
+                m_tiles = -(-C // gu.block_m)
+                assert gu.splits == 1 and gu.grid[1:] == (E, 1)
+                assert gu.grid[0] == m_tiles * -(-f // gu.block_n)
+                assert dn.grid[0] == m_tiles * -(-d // dn.block_n)
+                assert dn.block_n * (dn.grid[0] // m_tiles) >= d
 
 
 def test_flash_attention_head_dims_cover_the_dense_configs():
