@@ -17,7 +17,8 @@ of bf16 weights exceed the card):
 1. ``card``: the card's name and power limit from ``nvidia-smi``.
 2. ``moe_gmm``: the kernel pair against its plain PyTorch version at the
    serving shapes (E=32, d=1024, f=512, C=8 per decode step, C=80 per
-   prefill round, C=256 per 256-token forward), bf16 and fp32, with each
+   prefill round, C=256 per 256-token forward), bf16 and fp32, and at a
+   training microbatch's C=1280 in bf16, with each
    row's launch plan (tiles, ring depth, K splits), times of the kernels,
    the plain version and a ``torch.bmm`` chain, and the least time the
    card could take for the same work (fp32: three TF32 products per
@@ -66,12 +67,38 @@ of bf16 weights exceed the card):
     forward with exactly 2 ``moe_gmm`` and 2 ``flash_attention``
     launches.
 
+11. ``flash_attention_bwd`` and ``moe_gmm_bwd``: the backward kernels
+    against autograd through the plain versions (each gradient within
+    2e-2 (bf16) or 2e-5 / 1e-4 (fp32, flash / moe) of its largest
+    reference value, each tensor's error printed; the forward's output in
+    grad mode within the forward's tolerance, and flash's row
+    log-sum-exp too; two calls bitwise equal) at granite's training
+    microbatch (flash: B 4, S 1024,
+    causal, bf16 and fp32, and with a 256 window; phi3's dh 96 at S 2048;
+    moe: E 32, C 1280 bf16 and fp32, and C 8), with the kernel, plain,
+    library (SDPA's or the ``torch.bmm`` chain's backward) and bound times.
+12. ``train_grads``: granite at full width, 2 layers, fp32: one
+    ``loss_fn`` backward on the card against the same weights' gradients
+    on the CPU — the same expert routes first, then every gradient within
+    1e-4 of its largest CPU value.
+13. ``train``: granite at full width (24 layers, bf16) through
+    ``build_train_step`` + ``init_opt_state``: seq 1024, global batch 8 in
+    2 microbatches, policy ``afe``, sched policy ``dlbc``, four AdamW steps
+    on one batch (lr 1e-4, warmup 1): finite, falling losses, no skipped
+    step, step time, tokens/s, peak memory, and exactly 24 × 2 launches of
+    each kernel and each backward kernel per step; ``train_cli``:
+    ``repro_torch.launch.train`` (8 smoke steps, checkpoints every 2, a
+    crash after step 5, then the same run resumes from step 4) against an
+    uninterrupted run, final losses within 1e-5.
+
 Each main-path run (each forward of phases 4, 7, 9 and 10; the serve
-CLI and the batcher run of phase 5 for ``moe_gmm``) zeroes the launch
-counters just before it and reads them just after; the ``kernels`` line
-takes ``moe_gmm``'s count from the serve CLI, ``ssm_scan``'s from the
-fp32 falcon-mamba-7b forward and ``flash_attention``'s from the bf16
-phi3-mini forward.  Launches made to compare a kernel with its plain
+CLI and the batcher run of phase 5 for ``moe_gmm``; the four steps of
+phase 13 for the backward kernels) zeroes the launch counters just before
+it and reads them just after; the ``kernels`` line takes ``moe_gmm``'s
+count from the serve CLI, ``ssm_scan``'s from the fp32 falcon-mamba-7b
+forward, ``flash_attention``'s from the bf16 phi3-mini forward, and
+``flash_attention_bwd``'s and ``moe_gmm_bwd``'s from phase 13.  Each
+phase's wall time is printed after it.  Launches made to compare a kernel with its plain
 version are not counted.  Every phase prints JSON lines and raises on
 failure.  The second-to-last line is the ``kernels`` JSON and the last
 line ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without
@@ -84,6 +111,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -102,6 +130,15 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def timed(phase, *args):
+    """Run ``phase(*args)`` and print its wall time."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    emit({"phase": "seconds", "of": phase.__name__[len("phase_"):],
+          "seconds": time.perf_counter() - t0})
+    return out
 
 
 def bound(nbytes: float, flops: float, dtype: str) -> tuple:
@@ -199,6 +236,112 @@ def phase_moe_gmm(torch, cfg, plan) -> list:
     return rows
 
 
+def grads_against_plain(torch, fn, ref_fn, args, dout, names, fwd_tol, tol,
+                        what):
+    """``fn(*args)`` (the kernel, in grad mode) and the gradients of
+    ``(fn(*args) * dout).sum()`` (its backward kernels) against the plain
+    version ``ref_fn`` under autograd, on fp32 copies of the same inputs.
+    The forward output must be within ``fwd_tol`` (atol and rtol, as the
+    forward phases hold it) and each gradient within ``tol × max
+    |reference gradient|`` of that tensor; a second call must give the
+    same bits.  Returns (max |Δ| of the gradients, {name: max |Δ| / max
+    |ref|}, the forward's max |Δ|, the fp32 graph of the plain version,
+    its inputs)."""
+    def run():
+        leaves = [a.detach().clone().requires_grad_(True) for a in args]
+        out = fn(*leaves)
+        out.backward(dout)
+        return out.detach(), [a.grad for a in leaves]
+    (out, got), (out2, again) = run(), run()
+    torch.cuda.synchronize()
+    if not (torch.equal(out, out2)
+            and all(torch.equal(a, b) for a, b in zip(got, again))):
+        raise AssertionError(f"{what}: two calls differ")
+    ref_in = [a.detach().float().requires_grad_(True) for a in args]
+    ref_out = ref_fn(*ref_in).float()
+    fwd_err = max_err(torch, out, ref_out.detach().to(out.dtype), fwd_tol,
+                      fwd_tol, f"{what} forward")
+    ref = torch.autograd.grad(ref_out, ref_in, dout.float(),
+                              retain_graph=True)
+    err, rel = 0.0, {}
+    for name, g, r in zip(names, got, ref):
+        r = r.to(g.dtype).float()
+        if g.shape != r.shape or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{what}: {name} non-finite or mis-shaped")
+        e, scale = float((g.float() - r).abs().max()), float(r.abs().max())
+        if e > tol * scale:
+            raise AssertionError(f"{what}: {name} max |Δ| {e} beyond "
+                                 f"{tol} × {scale}")
+        err, rel[name] = max(err, e), e / max(scale, 1e-30)
+    return err, rel, fwd_err, ref_out, ref_in
+
+
+def phase_moe_gmm_bwd(torch, cfg, plan) -> list:
+    """The backward kernels of ``moe_gmm`` (dbuf, dw1, dw3, dw2), and the
+    forward kernels that run in grad mode, against autograd through the
+    plain version, at ``cfg``'s expert shape.  Each gradient is held
+    within 2e-2 (bf16) or 1e-4 (fp32) of its largest reference value: the
+    bf16 limit is ``flash_attention``'s, tighter than the forward's."""
+    from repro_torch.kernels.moe_dispatch import moe_gmm as MG
+    from repro_torch.kernels.moe_dispatch.ref import moe_gmm_ref
+
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    rows = []
+    for dtype, caps in plan:
+        dt = getattr(torch, dtype)
+        w1, w3 = ((torch.randn(E, d, f, generator=gen, device="cuda")
+                   * d ** -0.5).to(dt) for _ in range(2))
+        w2 = (torch.randn(E, f, d, generator=gen, device="cuda")
+              * f ** -0.5).to(dt)
+        for C in caps:
+            buf = torch.randn(E, C, d, generator=gen, device="cuda").to(dt)
+            dout = torch.randn(E, C, d, generator=gen, device="cuda").to(dt)
+            fwd_tol = (2e-2 if dtype == "bfloat16" else 2e-5) * 5
+            tol = 2e-2 if dtype == "bfloat16" else 1e-4
+            err, rel, fwd_err, ref_out, ref_in = grads_against_plain(
+                torch, MG.moe_gmm, moe_gmm_ref, (buf, w1, w3, w2), dout,
+                ("dbuf", "dw1", "dw3", "dw2"), fwd_tol, tol,
+                f"moe_gmm_bwd C={C} {dtype}")
+            lib_in = [t.detach().requires_grad_(True) for t in
+                      (buf, w1, w3, w2)]
+            h = torch.nn.functional.silu(torch.bmm(lib_in[0], lib_in[1])) \
+                * torch.bmm(lib_in[0], lib_in[2])
+            lib_out = torch.bmm(h, lib_in[3])
+            esz = buf.element_size()
+            # inputs buf, dout, w1, w3, w2 read once; dbuf, dw1, dw3, dw2
+            # written once; FLOPs / (E C d f): a and b recomputed (4), dh
+            # (2), dw2 (2), dw1 and dw3 (4), dbuf (4)
+            nbytes = (3 * E * C * d + 6 * E * d * f) * esz
+            flops = 16 * E * C * d * f
+            b_ms, b_by = bound(nbytes, 3 * flops, "tf32") \
+                if dtype == "float32" else bound(nbytes, flops, dtype)
+            row = {"phase": "moe_gmm_bwd", "arch": cfg.name, "E": E, "C": C,
+                   "d": d, "f": f, "dtype": dtype,
+                   "plan": [g._asdict() for g in MG.backward_plan(E, C, d,
+                                                                  f)],
+                   "max_abs_err": err,
+                   "max_err_over_max_ref": max(rel.values()),
+                   "err_over_max_ref": rel, "tol_over_max_ref": tol,
+                   "fwd_max_abs_err": fwd_err, "fwd_atol_rtol": fwd_tol,
+                   "bitwise_repeatable": True,
+                   "kernel_ms": time_ms(torch, lambda: MG.moe_gmm_bwd(
+                       buf, w1, w3, w2, dout), 10),
+                   "plain_ms": time_ms(torch, lambda: torch.autograd.grad(
+                       ref_out, ref_in, dout.float(), retain_graph=True), 5),
+                   "library_ms": time_ms(torch, lambda: torch.autograd.grad(
+                       lib_out, lib_in, dout, retain_graph=True), 10),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            if dtype == "float32":
+                row["bound_cuda_cores_ms"] = bound(nbytes, flops, dtype)[0]
+            emit(row)
+            rows.append(row)
+            del buf, dout, ref_out, ref_in, lib_in, lib_out, h
+        del w1, w3, w2
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: flash_attention
 # ---------------------------------------------------------------------------
@@ -266,6 +409,92 @@ def phase_flash(torch, cases) -> list:
     return rows
 
 
+def lse_ref(torch, q, k, window: int):
+    """Each causal row's log-sum-exp of the scaled scores, (B, H, S) fp32,
+    from q (B, S, H, dh) and k (B, T, KV, dh) in fp32."""
+    B, S, H, dh = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    s = torch.einsum("bskgd,btkd->bkgst", q.float().reshape(
+        B, S, KV, H // KV, dh), k.float()) * dh ** -0.5
+    pos = torch.arange(S, device=q.device)[:, None]
+    key = torch.arange(T, device=q.device)[None, :]
+    mask = pos >= key
+    if window:
+        mask &= pos - key < window
+    s = s.masked_fill(~mask, float("-inf"))
+    return torch.logsumexp(s, dim=-1).reshape(B, H, S)
+
+
+def phase_flash_bwd(torch, cases) -> list:
+    """The backward kernels of ``flash_attention`` (dq, dk, dv), and the
+    forward kernel that runs in grad mode (its output and the row
+    log-sum-exp it then writes), against the plain version; ``cases``:
+    (config, B, S, dtype, window), causal."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    rows = []
+    for c, B, S, dtype, window in cases:
+        H, KV, dh = c.n_heads, c.n_kv_heads, c.head_dim
+        dt = getattr(torch, dtype)
+        q = torch.randn(B, S, H, dh, generator=gen, device="cuda").to(dt)
+        k, v = (torch.randn(B, S, KV, dh, generator=gen, device="cuda")
+                .to(dt) for _ in range(2))
+        dout = torch.randn(B, S, H, dh, generator=gen, device="cuda").to(dt)
+        tol = 2e-2 if dtype == "bfloat16" else 2e-5
+        kw = dict(causal=True, window=window)
+        what = f"flash_attention_bwd {c.name} S={S} window={window} {dtype}"
+        err, rel, fwd_err, ref_out, ref_in = grads_against_plain(
+            torch, lambda *a: FA.flash_attention(*a, **kw),
+            lambda *a: attention_ref(*a, **kw), (q, k, v), dout,
+            ("dq", "dk", "dv"), tol, tol, what)
+        out, lse = FA._forward(q, k, v, True, window, with_lse=True)
+        lse_err = max_err(torch, lse, lse_ref(torch, q, k, window), tol, tol,
+                          f"{what} lse")
+        lib_in = [x.detach().transpose(1, 2).requires_grad_(True)
+                  for x in (q, k, v)]
+        mask = None
+        if window:
+            pos = torch.arange(S, device="cuda")
+            mask = (pos[:, None] >= pos[None, :]) \
+                & (pos[:, None] - pos[None, :] < window)
+
+        def library(backward: bool):
+            o = F.scaled_dot_product_attention(
+                *lib_in, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=True)
+            if backward:
+                torch.autograd.grad(o, lib_in, dout.transpose(1, 2))
+        lib_ms = time_ms(torch, lambda: library(True), 10) \
+            - time_ms(torch, lambda: library(False), 10)
+        pairs = attention_flops(S, S, 1, 1, 1, True, window) / 4
+        # q, k, v, out, dout and lse read once; dq, dk, dv written once.
+        # FLOPs: S = q k^T recomputed, dP = dO v^T, dv, dq and dk: 10·dh
+        # per visible (query, key) pair per head
+        nbytes = (4 * B * S * H * dh + 4 * B * S * KV * dh) \
+            * q.element_size() + 4 * B * H * S
+        b_ms, b_by = bound(nbytes, 10.0 * dh * B * H * pairs, dtype)
+        row = {"phase": "flash_attention_bwd", "arch": c.name, "B": B,
+               "S": S, "H": H, "KV": KV, "dh": dh, "causal": True,
+               "window": window, "dtype": dtype, "max_abs_err": err,
+               "max_err_over_max_ref": max(rel.values()),
+               "err_over_max_ref": rel, "tol_over_max_ref": tol,
+               "fwd_max_abs_err": fwd_err, "lse_max_abs_err": lse_err,
+               "fwd_atol_rtol": tol, "bitwise_repeatable": True,
+               "kernel_ms": time_ms(torch, lambda: FA.flash_attention_bwd(
+                   q, k, v, out, lse, dout, **kw), 10),
+               "plain_ms": time_ms(torch, lambda: torch.autograd.grad(
+                   ref_out, ref_in, dout.float(), retain_graph=True), 5),
+               "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+        emit(row)
+        rows.append(row)
+        del q, k, v, dout, ref_out, ref_in, out, lse, lib_in
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phases 4, 7, 9, 10 (fp32): forward vs prefill + decode or decode alone
 # ---------------------------------------------------------------------------
@@ -285,6 +514,7 @@ def phase_fp32_forward(torch, cfg, prompt_len: int, via: str) -> dict:
     from repro_torch.kernels.moe_dispatch import moe_gmm as MG
     from repro_torch.kernels.ssm_scan import ssm_scan as SS
     from repro_torch.models import model as TM
+    from repro_torch.tree import tree_leaves
 
     parity_mode(deterministic=False)
     kw = {"moe_capacity_factor": cfg.n_experts / cfg.top_k} \
@@ -327,7 +557,7 @@ def phase_fp32_forward(torch, cfg, prompt_len: int, via: str) -> dict:
     top2 = torch.topk(fwd[0, :V], 2).values
     row = {"phase": "fp32_forward", "arch": cfg.name, "dtype": "float32",
            "layers": L, "d_model": cfg.d_model, "params": sum(
-               t.numel() for t in _leaves(params)),
+               t.numel() for t in tree_leaves(params)),
            "prompt": prompt_len, "via": via, "argmax_forward": a_fwd,
            "argmax_decode": a_dec,
            "logits_max_abs_diff": float((fwd - dec).abs().max()),
@@ -346,14 +576,6 @@ def phase_fp32_forward(torch, cfg, prompt_len: int, via: str) -> dict:
     if launches != expect:
         raise AssertionError(f"{cfg.name}: launches {launches} != {expect}")
     return row
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 def phase_chunked_prefill(torch) -> dict:
@@ -666,6 +888,223 @@ def phase_wide_bf16(torch, cfg, card: str, prompt_len: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phases 11-13: training
+# ---------------------------------------------------------------------------
+
+
+def train_setup(torch, cfg, seed: int = SEED):
+    """The training step of phase 13, which
+    ``benchmarks/torch_train_profile.py`` profiles: ``cfg`` on the card
+    with random weights from ``seed``, ``init_opt_state`` and
+    ``build_train_step`` (seq 1024, global batch 8 in 2 microbatches,
+    policy ``afe``, sched policy ``dlbc``, AdamW at lr 1e-4 with warmup 1)
+    and one fixed batch.  Returns (step, params, opt, batch, shape)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import model as TM
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import StepConfig, build_train_step
+
+    shape = ShapeConfig("train", 1024, 8, "train", microbatches=2)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = TM.init_params(cfg, gen, device="cuda")
+    ocfg = AdamWConfig(lr=1e-4, warmup_steps=1)
+    opt = init_opt_state(params, ocfg)
+    step, _ = build_train_step(cfg, shape, StepConfig(
+        policy="afe", sched_policy="dlbc"), ocfg)
+    toks = torch.randint(0, cfg.vocab, (shape.global_batch,
+                                        shape.seq_len + 1),
+                         generator=gen, device="cuda")
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    return step, params, opt, batch, shape
+
+
+def phase_train_grads(torch, cfg) -> dict:
+    """granite at full width, 2 layers, fp32 (TF32 off), B 2, S 256: one
+    ``loss_fn`` backward on the card (the kernels and their backward
+    kernels) against the same weights' gradients on the CPU (the plain
+    versions).  The expert ids and keep masks of both runs are compared
+    first (a route that flips on a near-tie is reported as such); then
+    every parameter's gradient must be within 1e-4 of its largest CPU
+    gradient (the ``moe_gmm`` fp32 tolerance)."""
+    from repro_torch.device import parity_mode
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.moe_dispatch import moe_gmm as MG
+    from repro_torch.models import model as TM
+    from repro_torch.models import moe as M
+    from repro_torch.tree import tree_leaves, tree_map
+
+    parity_mode(deterministic=False)
+    c = dataclasses.replace(cfg, dtype="float32", n_layers=2)
+    p_cpu = TM.init_params(c, torch.Generator().manual_seed(SEED),
+                           device="cpu")
+    toks = torch.randint(0, c.vocab, (2, 257),
+                         generator=torch.Generator().manual_seed(SEED))
+    routes, grads, launches = {}, {}, {}
+    real = M.dispatch_combine
+
+    def spy(x, gates, ids, pos, keep, *a, **k):
+        routes.setdefault(x.device.type, []).append((ids.cpu(), keep.cpu()))
+        return real(x, gates, ids, pos, keep, *a, **k)
+
+    M.dispatch_combine = spy
+    try:
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda t: t.detach().to(dev).clone()
+                         .requires_grad_(True), p_cpu)
+            batch = {"tokens": toks[:, :-1].to(dev),
+                     "labels": toks[:, 1:].to(dev)}
+            FA.launches = FA.bwd_launches = MG.launches = 0
+            MG.bwd_launches = 0
+            TM.loss_fn(p, c, batch).backward()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = {"flash_attention": FA.launches,
+                            "flash_attention_bwd": FA.bwd_launches,
+                            "moe_gmm": MG.launches,
+                            "moe_gmm_bwd": MG.bwd_launches}
+            grads[dev] = [t.grad.cpu() for t in tree_leaves(p)]
+            del p
+    finally:
+        M.dispatch_combine = real
+    flips = sum(int(not (torch.equal(ic, ig) and torch.equal(kc, kg)))
+                for (ic, kc), (ig, kg) in zip(routes["cpu"], routes["cuda"]))
+    worst = 0.0
+    for gc, gg in zip(grads["cpu"], grads["cuda"]):
+        if not bool(torch.isfinite(gg).all()):
+            raise AssertionError("train_grads: non-finite card gradient")
+        worst = max(worst, float((gg - gc).abs().max())
+                    / max(float(gc.abs().max()), 1e-30))
+    row = {"phase": "train_grads", "arch": cfg.name, "dtype": "float32",
+           "layers": 2, "d_model": c.d_model, "B": 2, "S": 256,
+           "params": sum(t.numel() for t in tree_leaves(p_cpu)),
+           "leaves": len(grads["cpu"]), "routed_layers": len(routes["cuda"]),
+           "route_flips": flips, "max_err_over_max_cpu_grad": worst,
+           "tol": 1e-4, "launches": launches}
+    emit(row)
+    if flips:
+        raise AssertionError(f"train_grads: {flips} layer(s) routed a token "
+                             f"differently on the card (near-tie)")
+    if worst > 1e-4:
+        raise AssertionError(f"train_grads: gradient error {worst} > 1e-4")
+    expect = {k: 2 for k in launches}
+    if launches != expect:
+        raise AssertionError(f"train_grads: launches {launches}")
+    return row
+
+
+def phase_train(torch, cfg, card: str, steps: int = 4) -> dict:
+    """granite at full width (24 layers, bf16): the step of
+    :func:`train_setup` (``build_train_step`` + ``init_opt_state``, seq
+    1024, global batch 8 in 2 microbatches, policy ``afe``, sched policy
+    ``dlbc``); ``steps`` AdamW steps (lr 1e-4, warmup 1) on one fixed
+    batch.  Every step must launch each kernel and each backward kernel
+    exactly 24 × 2 times; losses finite and falling."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.moe_dispatch import moe_gmm as MG
+    from repro_torch.tree import tree_leaves
+
+    torch.cuda.reset_peak_memory_stats()
+    step, params, opt, batch, shape = train_setup(torch, cfg)
+    S, B, Mb = shape.seq_len, shape.global_batch, shape.microbatches
+    losses, norms, skipped, step_ms, per_step = [], [], [], [], []
+    torch.cuda.synchronize()
+    FA.launches = FA.bwd_launches = MG.launches = MG.bwd_launches = 0
+    for _ in range(steps):
+        before = (FA.launches, FA.bwd_launches, MG.launches, MG.bwd_launches)
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        after = (FA.launches, FA.bwd_launches, MG.launches, MG.bwd_launches)
+        per_step.append([a - b for a, b in zip(after, before)])
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        skipped.append(int(m["nonfinite_skipped"]))
+    launches = {"flash_attention": FA.launches,
+                "flash_attention_bwd": FA.bwd_launches,
+                "moe_gmm": MG.launches, "moe_gmm_bwd": MG.bwd_launches}
+    rest = sum(step_ms[1:]) / max(1, len(step_ms) - 1)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    row = {"phase": "train", "arch": cfg.name, "dtype": cfg.dtype,
+           "card": card, "layers": cfg.n_layers, "params": n_params,
+           "seq_len": S, "global_batch": B, "microbatches": Mb,
+           "policy": "afe", "sched_policy": "dlbc", "steps": steps,
+           "losses": losses, "grad_norms": norms,
+           "nonfinite_skipped": sum(skipped), "step_ms": step_ms,
+           "first_step_ms": step_ms[0], "rest_step_ms": rest,
+           "tokens_per_s": B * S / rest * 1e3,
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 1e9,
+           "launches_per_step": [dict(zip(launches, p)) for p in per_step],
+           "launches": launches}
+    emit(row)
+    del params, opt, m
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError("train: non-finite loss or gradient norm")
+    if sum(skipped) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train: losses {losses}, skipped {skipped}")
+    if any(p != [cfg.n_layers * Mb] * 4 for p in per_step):
+        raise AssertionError(f"train: launches per step {per_step}")
+    return row
+
+
+def phase_train_cli(torch, arch: str) -> dict:
+    """``repro_torch.launch.train`` as a user runs it (on the card): 8
+    smoke steps with checkpoints every 2 and a crash injected after step
+    5, the same run again (it resumes from step 4), and an uninterrupted
+    run; the resumed run's final loss within 1e-5 of the uninterrupted
+    one.  Checkpoints go under ``build/`` and are removed."""
+    import shutil
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.trainer import SimulatedFailure
+
+    from repro_torch.device import parity_mode
+
+    base = ROOT / "build" / "chip_smoke_train_cli"
+    shutil.rmtree(base, ignore_errors=True)
+    common = ["--arch", arch, "--smoke", "--steps", "8", "--ckpt-every",
+              "2"]
+    # deterministic algorithms: the embedding gradient's scatter-add would
+    # otherwise sum in an order that changes from run to run, which is
+    # not what this phase checks (restore + data replay)
+    parity_mode(deterministic=True)
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            try:
+                launch_train.main(common + ["--ckpt-dir", str(base / "a"),
+                                            "--failure-at", "5"])
+                crashed = False
+            except SimulatedFailure:
+                crashed = True
+            resumed = launch_train.main(common + ["--ckpt-dir",
+                                                  str(base / "a")])
+            whole = launch_train.main(common + ["--ckpt-dir",
+                                                str(base / "b")])
+        wall = time.perf_counter() - t0
+    finally:
+        parity_mode(deterministic=False)
+        shutil.rmtree(base, ignore_errors=True)
+    diff = abs(resumed["last_loss"] - whole["last_loss"])
+    row = {"phase": "train_cli", "arch": resumed["arch"],
+           "crashed_at_5": crashed, "resumed_from": resumed["resumed_from"],
+           "completed": resumed["completed"],
+           "first_loss": whole["first_loss"],
+           "last_loss_resumed": resumed["last_loss"],
+           "last_loss_uninterrupted": whole["last_loss"],
+           "last_loss_abs_diff": diff, "mean_step_s": whole["mean_step_s"],
+           "wall_s": wall}
+    emit(row)
+    if not crashed or resumed["resumed_from"] != 4 or \
+            resumed["completed"] != 8 or diff > 1e-5:
+        raise AssertionError(f"train_cli: {row}")
+    return row
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -709,43 +1148,58 @@ def main() -> int:
     # 80 GB: 2 of its 32 layers at published widths, the one reduction
     mixtral = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=2)
     # granite: C = 8, a decode step of 8 slots; C = 80, a prefill round of
-    # 8 x 32 tokens; C = 256, the 256-token forward of phase 4
-    moe_rows = phase_moe_gmm(torch, cfg, (("bfloat16", (8, 80, 256)),
-                                          ("float32", (8, 80, 256))))
+    # 8 x 32 tokens; C = 256, the 256-token forward of phase 4; C = 1280,
+    # a training microbatch of 4 x 1024 tokens (phase 13)
+    moe_rows = timed(phase_moe_gmm, torch, cfg,
+                     (("bfloat16", (8, 80, 256, 1280)),
+                      ("float32", (8, 80, 256))))
     # granite: S = 256 fp32 causal is the forward of phase 4, S = 2048 a
     # long prompt; hymba (G = 5, window 1024): S = 256 fp32 is the forward
     # of phase 7; phi3-mini (dh 96, G = 1) and mixtral (window 4096): the
     # forwards of phases 9 and 10
     hw = hymba.sliding_window
-    flash_rows = phase_flash(torch, (
+    flash_rows = timed(phase_flash, torch, (
         (cfg, 256, "float32", 0), (cfg, 2048, "bfloat16", 0),
         (cfg, 2048, "bfloat16", 256), (cfg, 2048, "float32", 0),
         (cfg, 2048, "float32", 256), (hymba, 256, "float32", hw),
         (hymba, 2048, "bfloat16", hw), (phi3, 256, "float32", 0),
         (phi3, 2048, "bfloat16", 0),
         (mixtral, 512, "bfloat16", mixtral.sliding_window)))
-    phase_fp32_forward(torch, cfg, 256, "prefill")
-    phase_chunked_prefill(torch)
-    srv = phase_serve(torch, cfg, smi)
-    ssm_rows = phase_ssm_scan(torch)
-    ssm_fwd = phase_fp32_forward(torch, falcon, 256, "decode")
-    phase_fp32_forward(torch, hymba, 256, "decode")
-    phase_ssm_bf16(torch, falcon, smi)
-    phase_fp32_forward(torch, phi3, 256, "prefill")
-    phi3_bf16 = phase_wide_bf16(torch, phi3, smi, 2048)
+    timed(phase_fp32_forward, torch, cfg, 256, "prefill")
+    timed(phase_chunked_prefill, torch)
+    srv = timed(phase_serve, torch, cfg, smi)
+    ssm_rows = timed(phase_ssm_scan, torch)
+    ssm_fwd = timed(phase_fp32_forward, torch, falcon, 256, "decode")
+    timed(phase_fp32_forward, torch, hymba, 256, "decode")
+    timed(phase_ssm_bf16, torch, falcon, smi)
+    timed(phase_fp32_forward, torch, phi3, 256, "prefill")
+    phi3_bf16 = timed(phase_wide_bf16, torch, phi3, smi, 2048)
     # mixtral's experts at the capacities of phase 10's runs: C = 8 for a
     # decode step, C = 160 for 512 bf16 tokens (factor 1.25), C = 64 for
     # 64 fp32 tokens (E/k)
-    phase_moe_gmm(torch, mixtral, (("bfloat16", (8, 160)),
-                                   ("float32", (64,))))
-    phase_fp32_forward(torch, mixtral, 64, "decode")
-    phase_wide_bf16(torch, mixtral, smi, 512)
+    timed(phase_moe_gmm, torch, mixtral,
+          (("bfloat16", (8, 160)), ("float32", (64,))))
+    timed(phase_fp32_forward, torch, mixtral, 64, "decode")
+    timed(phase_wide_bf16, torch, mixtral, smi, 512)
+    # training (phases 11-13): the backward kernels at granite's training
+    # shapes (B 4 x S 1024 per microbatch: C = 1280), a windowed shape and
+    # phi3's head dim 96; full-width gradients against the CPU; AdamW
+    # steps at full width; the training CLI with a crash and a resume
+    fa_bwd_rows = timed(phase_flash_bwd, torch, (
+        (cfg, 4, 1024, "bfloat16", 0), (cfg, 4, 1024, "float32", 0),
+        (cfg, 4, 1024, "bfloat16", 256), (phi3, 1, 2048, "bfloat16", 0)))
+    moe_bwd_rows = timed(phase_moe_gmm_bwd, torch, cfg, (
+        ("bfloat16", (1280, 8)), ("float32", (1280,))))
+    timed(phase_train_grads, torch, cfg)
+    train = timed(phase_train, torch, cfg, smi)
+    timed(phase_train_cli, torch, cfg.name)
 
     moe_main = next(r for r in moe_rows
                     if r["C"] == 8 and r["dtype"] == "bfloat16")
     flash_main = next(r for r in flash_rows
                       if r["arch"] == phi3.name and r["S"] == 2048)
     ssm_main = ssm_rows[0]
+    fa_bwd_main, moe_bwd_main = fa_bwd_rows[0], moe_bwd_rows[0]
     kernels = [
         {"name": "moe_gmm", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_gmm.cu",
@@ -776,6 +1230,28 @@ def main() -> int:
          "max_abs_err": ssm_main["max_abs_err"], "ms": ssm_main["kernel_ms"],
          "plain_ms": ssm_main["plain_ms"], "bound_ms": ssm_main["bound_ms"],
          "bound_by": ssm_main["bound_by"], "library_ms": None},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:127",
+         "launches": train["launches"]["flash_attention_bwd"],
+         "shape": "B=4 S=1024 H=16 KV=8 dh=64 causal bf16 (granite-moe-1b-"
+                  "a400m training microbatch, one launch per layer)",
+         "max_abs_err": fa_bwd_main["max_abs_err"],
+         "ms": fa_bwd_main["kernel_ms"], "plain_ms": fa_bwd_main["plain_ms"],
+         "bound_ms": fa_bwd_main["bound_ms"],
+         "bound_by": fa_bwd_main["bound_by"],
+         "library_ms": fa_bwd_main["library_ms"]},
+        {"name": "moe_gmm_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/moe_gmm.cu",
+         "replaces": "src/repro/kernels/moe_dispatch/moe_gmm.py:62",
+         "launches": train["launches"]["moe_gmm_bwd"],
+         "shape": "E=32 C=1280 d=1024 f=512 bf16 (granite-moe-1b-a400m "
+                  "training microbatch, one launch per layer)",
+         "max_abs_err": moe_bwd_main["max_abs_err"],
+         "ms": moe_bwd_main["kernel_ms"], "plain_ms": moe_bwd_main["plain_ms"],
+         "bound_ms": moe_bwd_main["bound_ms"],
+         "bound_by": moe_bwd_main["bound_by"],
+         "library_ms": moe_bwd_main["library_ms"]},
     ]
     for k in kernels:
         if k["launches"] <= 0:

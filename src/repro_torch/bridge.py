@@ -1,8 +1,11 @@
-"""Move parameter and cache trees between the JAX reference and the port.
+"""Move parameter, cache and optimizer-state trees between the JAX
+reference and the port.
 
 The reference's trees are nested dicts of arrays (stacked layers keep
 their leading ``(L,)`` dim); the port uses the same nesting with torch
-tensors.  Anything exposing ``__array__`` (a JAX array, a numpy array)
+tensors.  The AdamW state (``m``, ``v``, ``master`` and the int32 scalar
+``step``) travels the same way, dtypes kept, so a parity test can start
+both packages' train steps from one state.  Anything exposing ``__array__`` (a JAX array, a numpy array)
 is accepted, so this module imports neither JAX nor the reference.
 
 bf16 travels as its raw 16 bits: numpy's bf16 is the ``ml_dtypes``

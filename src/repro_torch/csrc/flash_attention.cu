@@ -9,6 +9,10 @@
 //   triangle / band (the DLBC "work only where it exists" bound); masked
 //   probabilities are zeroed and l is clamped at 1e-30.  Positions start
 //   at 0 for both streams.  Head dims: every multiple of 16 up to 128.
+//   Given a non-null `lse` pointer, both paths also write each row's
+//   log-sum-exp of the scaled scores (B, H, S, fp32), which the backward
+//   (flash_attention_bwd.cu) uses to recompute the probabilities; serving
+//   passes null and writes nothing more.
 //
 // What bounds it on the H100: operations.  Causal attention over S = 2048
 //   with H = 16, dh = 64 is 4 * H * S^2 / 2 * dh = 8.6 GFLOP (about 9 us of
@@ -86,8 +90,9 @@ constexpr size_t smem_bytes() {
 template <int DH>
 __global__ void __launch_bounds__(kThreads)
 attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, float* __restrict__ out, int S,
-            int Tk, int H, int KV, int causal, int window, float sm_scale) {
+            const float* __restrict__ v, float* __restrict__ out,
+            float* __restrict__ lse, int S, int Tk, int H, int KV, int causal,
+            int window, float sm_scale) {
   extern __shared__ float smem[];
   float* qs = smem;                          // [kRows][DH + 1]
   float* ks = qs + kRows * (DH + 1);         // [kBK][DH + 1]
@@ -216,13 +221,18 @@ attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* orow = out + (((size_t)b * S + s) * H + kvh * G + r % G) * DH;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) orow[tx + 16 * c] = o[i][c] * inv;
+    // row log-sum-exp of the scaled scores, for the backward (+inf for a
+    // row that sees no key, so that its recomputed probabilities are 0)
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)b * H + kvh * G + r % G) * S + s] =
+          l[i] > 0.0f ? m[i] + logf(l[i]) : INFINITY;
   }
 }
 
 template <int DH>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
-               int S, int Tk, int H, int KV, int causal, int window,
-               cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* out,
+               float* lse, int B, int S, int Tk, int H, int KV, int causal,
+               int window, cudaStream_t stream) {
   const size_t smem = smem_bytes<DH>();
   auto kern = attn_kernel<DH>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -232,8 +242,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid((S + BQ - 1) / BQ, B * KV);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), S, Tk, H, KV,
-      causal, window, 1.0f / sqrtf((float)DH));
+      static_cast<const float*>(v), static_cast<float*>(out), lse, S, Tk, H,
+      KV, causal, window, 1.0f / sqrtf((float)DH));
   return (int)cudaGetLastError();
 }
 
@@ -312,9 +322,9 @@ __device__ __forceinline__ float quad_sum(float v) {
 template <int DH>
 __global__ void __launch_bounds__(kTcThreads)
 attn_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, bf16* __restrict__ out, int S,
-               int Tk, int H, int KV, int causal, int window,
-               float scale_log2) {
+               const bf16* __restrict__ v, bf16* __restrict__ out,
+               float* __restrict__ lse, int S, int Tk, int H, int KV,
+               int causal, int window, float scale_log2) {
   constexpr int LD = DH + kPad;      // shared row stride (elements)
   constexpr int kVecs = DH / 8;      // 16-byte vectors per row
   constexpr int kKSteps = DH / 16;   // k16 steps of Q K^T
@@ -498,13 +508,19 @@ attn_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int n = 0; n < kNTiles; ++n)
       *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) = __floats2bfloat162_rn(
           o[n][2 * half] * inv, o[n][2 * half + 1] * inv);
+    // row log-sum-exp in natural units (the scores ran in base 2)
+    if (lse != nullptr && (lane & 3) == 0) {
+      const float l = half ? l1 : l0, m = half ? m1 : m0;
+      lse[((size_t)b * H + kvh * G + r % G) * S + s] =
+          l > 0.0f ? (m + log2f(l)) * 0.6931471805599453f : INFINITY;
+    }
   }
 }
 
 template <int DH>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                int B, int S, int Tk, int H, int KV, int causal, int window,
-                cudaStream_t stream) {
+                float* lse, int B, int S, int Tk, int H, int KV, int causal,
+                int window, cudaStream_t stream) {
   const size_t smem = tc_smem_bytes<DH>();
   auto kern = attn_tc_kernel<DH>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -516,8 +532,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   const dim3 grid(B * KV, q_tiles);
   kern<<<grid, kTcThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), S, Tk, H, KV,
-      causal, window, 1.4426950408889634f / sqrtf((float)DH));
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, S, Tk, H,
+      KV, causal, window, 1.4426950408889634f / sqrtf((float)DH));
   return (int)cudaGetLastError();
 }
 
@@ -525,20 +541,23 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
 
 // dtype: 0 = float32, 1 = bfloat16.  q/out (B, S, H, dh), k/v (B, T, KV, dh),
 // all contiguous (and 16-byte aligned for bf16); dh a multiple of 16 up to
-// 128.  Returns cudaGetLastError() after the launch.
+// 128.  lse: null (serving), or (B, H, S) fp32 that receives each row's
+// log-sum-exp of the scaled scores for the backward
+// (flash_attention_bwd.cu).  Returns cudaGetLastError() after the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B, int S,
-                                      int Tk, int H, int KV, int dh,
-                                      int causal, int window, int dtype,
-                                      void* stream) {
+                                      const void* v, void* out, void* lse,
+                                      int B, int S, int Tk, int H, int KV,
+                                      int dh, int causal, int window,
+                                      int dtype, void* stream) {
   if (B <= 0 || S <= 0 || Tk <= 0 || KV <= 0 || H % KV != 0 || H / KV > kRows)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
 #define FA_CASE(D)                                                             \
   case D:                                                                      \
     return dtype == 0                                                          \
-        ? launch_f32<D>(q, k, v, out, B, S, Tk, H, KV, causal, window, s)      \
-        : launch_bf16<D>(q, k, v, out, B, S, Tk, H, KV, causal, window, s);
+        ? launch_f32<D>(q, k, v, out, l, B, S, Tk, H, KV, causal, window, s)   \
+        : launch_bf16<D>(q, k, v, out, l, B, S, Tk, H, KV, causal, window, s);
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   switch (dh) {
     FA_HEAD_DIMS(FA_CASE)

@@ -1,7 +1,8 @@
 """Build the hand-written CUDA kernels and load them with ``ctypes``.
 
-Each ``src/repro_torch/csrc/<name>.cu`` exposes a plain C interface and
-is compiled on first use, on the machine with the card, by
+Each ``src/repro_torch/csrc/<source>.cu`` exposes a plain C interface (one
+or more entry points, :data:`SIGNATURES`) and is compiled on first use, on
+the machine with the card, by
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o <repo>/build/repro_torch_kernels/<name>-<hash>.so <name>.cu
@@ -12,9 +13,13 @@ checkout are compiled; nothing is fetched.  :func:`build_all` starts one
 ``nvcc`` per source at once (a cold start builds every kernel in the time
 of the slowest).  Pointer and stream arguments are ``c_void_p`` and every
 entry point returns ``cudaGetLastError()``; :func:`check` raises on a
-non-zero code, so a refused launch never passes silently.  No kernel
-has a backward yet: :func:`refuse_grad` makes each wrapper say so rather
-than return a result without a gradient.
+non-zero code, so a refused launch never passes silently.
+
+``flash_attention`` and ``moe_gmm`` have hand-written backward kernels
+(``flash_attention_bwd.cu``, ``moe_gmm_bwd_launch`` in ``moe_gmm.cu``),
+which their wrappers' ``torch.autograd.Function`` launches.  ``ssm_scan``
+has none yet: :func:`refuse_grad` makes its wrapper say so rather than
+return a result without a gradient.
 """
 
 from __future__ import annotations
@@ -35,18 +40,23 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-#: C signatures: name → (entry point, argtypes)
+#: C entry points: name → (source, entry point, argtypes)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "moe_gmm": ("moe_gmm_launch",
-                [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                 _P]),
-    "flash_attention": ("flash_attention_launch",
-                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _I, _P]),
-    "ssm_scan": ("ssm_scan_launch",
-                 [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "moe_gmm": ("moe_gmm", "moe_gmm_launch",
+                [_P] * 7 + [_I] * 8 + [_P]),
+    "moe_gmm_bwd": ("moe_gmm", "moe_gmm_bwd_launch",
+                    [_P] * 12 + [_I] * 5 + [_P]),
+    "flash_attention": ("flash_attention", "flash_attention_launch",
+                        [_P] * 5 + [_I] * 9 + [_P]),
+    "flash_attention_bwd": ("flash_attention_bwd",
+                            "flash_attention_bwd_launch",
+                            [_P] * 10 + [_I] * 9 + [_P]),
+    "ssm_scan": ("ssm_scan", "ssm_scan_launch",
+                 [_P] * 6 + [_I] * 4 + [_P]),
 }
+#: the sources, one library (and one ``nvcc``) each
+SOURCES = tuple(sorted({src for src, _, _ in SIGNATURES.values()}))
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -95,9 +105,9 @@ def _finish(name: str, started) -> None:
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
-    """Compile every kernel not built yet, one ``nvcc`` per source, all
-    started together.  Returns the build logs."""
-    names = list(names or SIGNATURES)
+    """Compile every source (of ``names``, default all) not built yet, one
+    ``nvcc`` per source, all started together.  Returns the build logs."""
+    names = list(names or SOURCES)
     with _lock:
         started = {n: _start(n) for n in names if n not in _libs}
         for n, s in started.items():
@@ -105,25 +115,29 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     return dict(build_log)
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name`` (built on first use)."""
-    lib = _libs.get(name)
+def library(source: str) -> ctypes.CDLL:
+    """The loaded library of ``source`` (built on first use), its entry
+    points typed."""
+    lib = _libs.get(source)
     if lib is not None:
         return lib
-    build_all([name])
+    build_all([source])
     with _lock:
-        if name not in _libs:
-            lib = ctypes.CDLL(str(_target(name)))
-            fn_name, argtypes = SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _libs[name] = lib
-    return _libs[name]
+        if source not in _libs:
+            lib = ctypes.CDLL(str(_target(source)))
+            for src, fn_name, argtypes in SIGNATURES.values():
+                if src == source:
+                    fn = getattr(lib, fn_name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+            _libs[source] = lib
+    return _libs[source]
 
 
 def entry(name: str):
-    return getattr(library(name), SIGNATURES[name][0])
+    """The C entry point ``name`` of :data:`SIGNATURES`."""
+    source, fn_name, _ = SIGNATURES[name]
+    return getattr(library(source), fn_name)
 
 
 def check(name: str, code: int) -> None:
@@ -158,15 +172,21 @@ def cuda_inputs(name: str, *tensors) -> int:
     return code
 
 
+def needs_grad(*tensors) -> bool:
+    """Grad mode is on and an input requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def refuse_grad(name: str, *tensors) -> None:
-    """Raise when grad mode is on and an input requires grad: the CUDA
-    kernels have no backward yet (ROADMAP Queue 1 item 8, training), and
-    a result filled through ``ctypes`` would silently carry none."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    """Raise when :func:`needs_grad`: a kernel without a backward kernel
+    (``ssm_scan``, ROADMAP Queue 1 item 15) would return a result filled
+    through ``ctypes`` that silently carries no gradient."""
+    if needs_grad(*tensors):
         raise RuntimeError(
             f"{name}: the CUDA kernel has no backward yet (ROADMAP Queue 1 "
-            f"item 8, training); call it under torch.no_grad() or on "
-            f"tensors that do not require grad")
+            f"item 15: the ssm_scan backward and hymba-1.5b training); call "
+            f"it under torch.no_grad() or on tensors that do not require "
+            f"grad")
 
 
 def all_on_cpu(*tensors) -> bool:

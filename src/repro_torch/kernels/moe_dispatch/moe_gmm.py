@@ -1,4 +1,5 @@
-"""Grouped expert SwiGLU FFN: wrapper of the CUDA kernels ``csrc/moe_gmm.cu``.
+"""Grouped expert SwiGLU FFN and its gradient: wrapper of the CUDA kernels
+``csrc/moe_gmm.cu``.
 
 Port of the Pallas kernel ``repro/kernels/moe_dispatch/moe_gmm.py``:
 ``out[e] = (silu(buf[e]·w1[e]) ⊙ (buf[e]·w3[e]))·w2[e]`` over capacity
@@ -9,6 +10,16 @@ down into the output, with the tiles, ring depth and K splits of
 (:func:`~.ref.moe_gmm_ref`); CUDA tensors launch the kernels or raise.
 ``launches`` counts wrapper calls that launched (one per call on the
 card, however many kernels it issues).
+
+On CUDA tensors in grad mode the call goes through :class:`MoeGmmFn`,
+whose backward launches ``moe_gmm_bwd_launch``: four grouped GEMMs under
+:func:`backward_plan` (``a = buf·w1``, ``b = buf·w3`` and ``dh =
+dout·w2ᵀ`` in one kernel's fp32 accumulators, with the SwiGLU backward in
+its epilogue; ``dw2 = hᵀ·dout``; ``dw1, dw3 = bufᵀ·(da, db)``; ``dbuf =
+da·w1ᵀ + db·w3ᵀ``).  a and b are recomputed rather than saved: the
+forward keeps only its inputs, and the backward's scratch is da, db and h,
+3 × (E, C, f) in buf's dtype (granite at C 1280 in bf16: 126 MB per layer,
+freed when the call returns).  ``bwd_launches`` counts backward calls.
 """
 
 from __future__ import annotations
@@ -21,9 +32,10 @@ import torch
 from .. import _build
 from .ref import moe_gmm_ref
 
-#: calls that launched the kernels since the last reset (a plain int;
-#: callers zero it)
+#: calls that launched the kernels since the last reset (plain ints;
+#: callers zero them)
 launches = 0
+bwd_launches = 0
 
 #: weight columns of one tile: 64 of w1 beside the same 64 of w3 (gate-up),
 #: or 128 of w2 (down)
@@ -115,14 +127,40 @@ def _check_shapes(buf, w1, w3, w2) -> tuple:
     return E, C, d, f
 
 
-def moe_gmm(buf: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
-            w2: torch.Tensor) -> torch.Tensor:
-    """buf (E, C, d); w1/w3 (E, d, f); w2 (E, f, d) → (E, C, d) in buf's
-    dtype, fp32 inside."""
+#: the backward's tile (``kBwdBM``, ``kBwdStages`` in the source): every
+#: one of its four kernels runs 64-row tiles on a ring of 4 slots
+BWD_BLOCK_M, BWD_STAGES = 64, 4
+
+
+class BackwardGemm(NamedTuple):
+    """One kernel of the backward: ``M × N`` outputs over ``K``, ``NB``
+    weight operands side by side, grid ``(M tiles × N tiles, E)``."""
+
+    name: str
+    M: int
+    K: int
+    N: int
+    nb: int
+    grid: tuple
+
+
+@functools.lru_cache(maxsize=None)
+def backward_plan(E: int, C: int, d: int, f: int) -> tuple:
+    """The four grouped GEMMs of one backward call, in launch order (the
+    launch plan of the forward, :func:`launch_plan`, is separate)."""
+    def gemm(name, M, K, N, nb):
+        bn = WEIGHT_COLS // nb
+        return BackwardGemm(name, M, K, N, nb,
+                            (_cdiv(M, BWD_BLOCK_M) * _cdiv(N, bn), E))
+    return (gemm("a, b, dh = buf·w1, buf·w3, dout·w2ᵀ → da, db, h",
+                 C, d, f, 2),
+            gemm("dw2 = hᵀ·dout", f, C, d, 1),
+            gemm("dw1, dw3 = bufᵀ·da, bufᵀ·db", d, C, f, 2),
+            gemm("dbuf = da·w1ᵀ + db·w3ᵀ", C, 2 * f, d, 1))
+
+
+def _forward(buf, w1, w3, w2) -> torch.Tensor:
     global launches
-    if _build.all_on_cpu(buf, w1, w3, w2):
-        return moe_gmm_ref(buf, w1, w3, w2)
-    _build.refuse_grad("moe_gmm", buf, w1, w3, w2)
     code = _build.cuda_inputs("moe_gmm", buf, w1, w3, w2)
     E, C, d, f = _check_shapes(buf, w1, w3, w2)
     out = torch.empty_like(buf)
@@ -132,6 +170,57 @@ def moe_gmm(buf: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
     run_plan(buf, w1, w3, w2, out, plan, code)
     launches += 1
     return out
+
+
+def moe_gmm_bwd(buf, w1, w3, w2, dout) -> tuple:
+    """Launch the backward kernels: ``(dbuf, dw1, dw3, dw2)`` in buf's
+    dtype for ``dout`` = dL/dout."""
+    global bwd_launches
+    code = _build.cuda_inputs("moe_gmm", buf, w1, w3, w2, dout)
+    E, C, d, f = _check_shapes(buf, w1, w3, w2)
+    if dout.shape != buf.shape or dout.data_ptr() % 16:
+        raise ValueError(f"moe_gmm_bwd: dout {tuple(dout.shape)} must match "
+                         f"buf {tuple(buf.shape)} and be 16-byte aligned")
+    grads = tuple(torch.empty_like(t) for t in (buf, w1, w3, w2))
+    if buf.numel() == 0:
+        return tuple(g.zero_() for g in grads)
+    da, db, h = (torch.empty((E, C, f), dtype=buf.dtype, device=buf.device)
+                 for _ in range(3))
+    dbuf, dw1, dw3, dw2 = grads
+    stream = torch.cuda.current_stream(buf.device).cuda_stream
+    rc = _build.entry("moe_gmm_bwd")(
+        buf.data_ptr(), w1.data_ptr(), w3.data_ptr(), w2.data_ptr(),
+        dout.data_ptr(), da.data_ptr(), db.data_ptr(), h.data_ptr(),
+        dbuf.data_ptr(), dw1.data_ptr(), dw3.data_ptr(), dw2.data_ptr(),
+        E, C, d, f, code, stream)
+    _build.check("moe_gmm_bwd", rc)
+    bwd_launches += 1
+    return grads
+
+
+class MoeGmmFn(torch.autograd.Function):
+    """The kernel pair under autograd: the forward saves its inputs; the
+    backward launches the backward kernels."""
+
+    @staticmethod
+    def forward(ctx, buf, w1, w3, w2):
+        ctx.save_for_backward(buf, w1, w3, w2)
+        return _forward(buf, w1, w3, w2)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return moe_gmm_bwd(*ctx.saved_tensors, dout.contiguous())
+
+
+def moe_gmm(buf: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
+            w2: torch.Tensor) -> torch.Tensor:
+    """buf (E, C, d); w1/w3 (E, d, f); w2 (E, f, d) → (E, C, d) in buf's
+    dtype, fp32 inside.  Differentiable on both devices."""
+    if _build.all_on_cpu(buf, w1, w3, w2):
+        return moe_gmm_ref(buf, w1, w3, w2)
+    if _build.needs_grad(buf, w1, w3, w2):
+        return MoeGmmFn.apply(buf, w1, w3, w2)
+    return _forward(buf, w1, w3, w2)
 
 
 def run_plan(buf, w1, w3, w2, out, plan: LaunchPlan, code: int) -> None:

@@ -30,6 +30,8 @@ NEG_INF = -1e30
 
 
 def _norm_init(gen: torch.Generator, shape, scale, dtype) -> torch.Tensor:
+    if gen.device.type == "meta":  # shapes only (model.param_shapes)
+        return torch.empty(shape, dtype=dtype, device="meta")
     return (torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=gen.device) * scale).to(dtype)
 

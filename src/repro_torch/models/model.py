@@ -47,6 +47,19 @@ def _layer(tree: dict, i: int) -> dict:
             for k, v in tree.items()}
 
 
+def _unbind(tree: dict) -> list:
+    """The layers of a stacked tree, as per-layer trees of views
+    (``torch.unbind``).  Under autograd each leaf's gradient is then
+    stacked once; taking the layers one index at a time would build a
+    full-stack gradient per layer and add them up (L full-stack adds,
+    ~0.15 s of a full-width granite training step)."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree))
+
+
 def _stacked_init(make, n: int) -> dict:
     """Stack ``n`` trees from ``make()`` along a new leading dim, filling
     preallocated stacks one layer at a time (peak memory: the stack plus
@@ -90,6 +103,23 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         else torch.Generator(device=dev).manual_seed(0)
     if gen.device.type != dev.type:
         raise ValueError(f"generator on {gen.device}, params on {dev}")
+    return _init(cfg, gen)
+
+
+class _MetaGenerator:
+    """Stands in for a generator where only shapes and dtypes are wanted."""
+
+    device = torch.device("meta")
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The parameter tree as meta tensors — shapes and dtypes, no storage:
+    the counterpart of the reference's ``ShapeDtypeStruct`` tree (the
+    train step counts its leaves for the gradient-bucket plan)."""
+    return _init(cfg, _MetaGenerator())
+
+
+def _init(cfg: ModelConfig, gen) -> dict:
     dt = torch_dtype(cfg.dtype)
     out = {
         "embed": L._norm_init(gen, (cfg.padded_vocab, cfg.d_model), 0.02, dt),
@@ -128,14 +158,19 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     flash-attention kernel and every mamba head the selective-scan kernel,
     one launch per ``ssm_chunk`` tokens (S must be a multiple of it when
     larger).  ``last_only`` slices to the final position before the
-    lm_head matmul.  ``schedule``/``q_chunk``/``k_chunk``/``remat`` are
-    accepted for signature parity and have no effect (the port runs
-    forward only, without autodiff rematerialisation)."""
+    lm_head matmul.  Differentiable on both devices: on CUDA tensors that
+    require grad the kernels run under their ``torch.autograd.Function``s,
+    whose backward launches the hand-written backward kernels
+    (``flash_attention``, ``moe_gmm``; ``ssm_scan`` has none yet and
+    raises).  ``schedule``/``q_chunk``/``k_chunk`` are accepted for
+    signature parity and have no effect (the kernels bound their loops
+    themselves).  ``remat`` is accepted and has no effect either: autograd
+    keeps every layer's activations (no rematerialisation), and the card
+    runs report the peak memory that costs."""
     kind = _plan(cfg)[0][1]
     x = params["embed"][batch["tokens"].long()]
-    stack = params["layers"]
-    for i in range(_n_layers(stack)):
-        x = B.layer_apply(_layer(stack, i), cfg, x, kind, schedule=schedule,
+    for p in _unbind(params["layers"]):
+        x = B.layer_apply(p, cfg, x, kind, schedule=schedule,
                           q_chunk=q_chunk, k_chunk=k_chunk,
                           ssm_chunk=ssm_chunk)
     if last_only:

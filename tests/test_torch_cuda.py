@@ -23,6 +23,7 @@ from repro_torch.kernels.moe_dispatch.ref import moe_gmm_ref  # noqa: E402
 from repro_torch.kernels.ssm_scan import ssm_scan as SS  # noqa: E402
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -188,9 +189,10 @@ def test_moe_gmm_split_k_is_bitwise_repeatable(cuda):
 
 
 def test_kernels_refuse_inputs_that_require_grad(cuda):
-    """No CUDA kernel has a backward yet: in grad mode each wrapper raises
-    for an input that requires grad, naming ROADMAP Queue 1 item 8; under
-    no_grad, or without grad, it launches."""
+    """Only ``ssm_scan`` has no backward kernel yet: in grad mode it raises
+    for an input that requires grad, naming ROADMAP Queue 1 item 15, and
+    launches under no_grad.  ``flash_attention`` and ``moe_gmm`` now launch
+    their backward kernels and return finite gradients for every input."""
     x = torch.randn((2, 8, 64), device=cuda)
     w = torch.randn((2, 64, 32), device=cuda)
     w2 = torch.randn((2, 32, 64), device=cuda)
@@ -198,22 +200,157 @@ def test_kernels_refuse_inputs_that_require_grad(cuda):
     kv = torch.randn((1, 16, 2, 64), device=cuda)
     dA = torch.rand((1, 8, 16, 4), device=cuda)
     C = torch.randn((1, 8, 4), device=cuda)
+    for i in range(3):
+        args = [a.clone().requires_grad_(j == i)
+                for j, a in enumerate((dA, dA, C))]
+        with pytest.raises(RuntimeError, match="ssm_scan.*Queue 1 item 15"):
+            SS.ssm_scan(*args)
+        with torch.no_grad():
+            SS.ssm_scan(*args)
     calls = {
-        "moe_gmm": (MG.moe_gmm, (x, w, w, w2)),
-        "flash_attention": (FA.flash_attention, (q, kv, kv)),
-        "ssm_scan": (SS.ssm_scan, (dA, dA, C)),
+        "moe_gmm": (MG, MG.moe_gmm, (x, w, w.clone(), w2)),
+        "flash_attention": (FA, FA.flash_attention, (q, kv, kv.clone())),
     }
-    for name, (fn, args) in calls.items():
+    for name, (mod, fn, args) in calls.items():
         for i in range(len(args)):
             grad_args = [a.clone().requires_grad_(j == i)
                          for j, a in enumerate(args)]
-            with pytest.raises(RuntimeError,
-                               match=f"{name}.*Queue 1 item 8"):
-                fn(*grad_args)
+            n0 = mod.bwd_launches
+            fn(*grad_args).square().sum().backward()
+            assert mod.bwd_launches == n0 + 1, name
+            g = grad_args[i].grad
+            assert g is not None and bool(torch.isfinite(g).all()), name
+            assert float(g.abs().sum()) > 0, name
             with torch.no_grad():
                 fn(*grad_args)
         fn(*args)
     torch.cuda.synchronize()
+
+
+def _grads(fn, args, dout):
+    """Autograd gradients of ``(fn(*args) * dout).sum()`` w.r.t. args."""
+    leaves = [a.detach().clone().requires_grad_(True) for a in args]
+    fn(*leaves).backward(dout)
+    return [a.grad for a in leaves]
+
+
+def _assert_grads_close(got, ref, tol, what):
+    """Each gradient within ``tol × max |reference gradient|``."""
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert g.shape == r.shape and g.dtype == r.dtype, (what, i)
+        scale = float(r.float().abs().max())
+        err = float((g.float() - r.float()).abs().max())
+        assert err <= tol * scale, f"{what} grad {i}: {err} > {tol}×{scale}"
+
+
+@pytest.mark.parametrize("B,S,T,H,KV,dh,causal,window", [
+    (2, 128, 128, 4, 2, 64, True, 0), (1, 77, 77, 4, 2, 16, True, 0),
+    (1, 100, 130, 4, 2, 32, False, 0), (1, 200, 200, 8, 8, 96, True, 0),
+    (1, 300, 300, 10, 2, 96, True, 64), (1, 256, 256, 25, 5, 64, True, 100),
+    (2, 150, 150, 4, 1, 128, False, 40), (1, 129, 129, 2, 2, 80, True, 0),
+    (1, 64, 64, 64, 1, 48, True, 0),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_kernel_matches_plain(cuda, B, S, T, H, KV, dh,
+                                                  causal, window, dtype):
+    """dq, dk, dv from the backward kernels against autograd through the
+    plain version (fp32), each within 2e-5 (fp32) / 2e-2 (bf16) of the
+    largest reference gradient; bitwise the same on a second call."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(11)
+    q, k, v = (_t(rng.normal(size=s), dt, cuda) for s in (
+        (B, S, H, dh), (B, T, KV, dh), (B, T, KV, dh)))
+    dout = _t(rng.normal(size=(B, S, H, dh)), dt, cuda)
+    kw = dict(causal=causal, window=window)
+    n0 = FA.bwd_launches
+    got = _grads(lambda *a: FA.flash_attention(*a, **kw), (q, k, v), dout)
+    again = _grads(lambda *a: FA.flash_attention(*a, **kw), (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert FA.bwd_launches == n0 + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = _grads(lambda *a: attention_ref(*a, **kw).float(),
+                 [x.float() for x in (q, k, v)], dout.float())
+    _assert_grads_close(got, [r.to(dt) for r in ref], _tol(dt),
+                        f"flash_attention {dtype}")
+
+
+@pytest.mark.parametrize("E,C,d,f", [
+    (4, 128, 64, 128), (3, 13, 96, 96), (5, 37, 192, 320), (2, 1, 64, 64),
+    (3, 70, 72, 40), (2, 33, 136, 104),
+    (32, 8, 1024, 512), (32, 80, 1024, 512), (32, 1280, 1024, 512),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_gmm_bwd_kernel_matches_plain(cuda, E, C, d, f, dtype):
+    """dbuf, dw1, dw3, dw2 from the backward kernels against autograd
+    through the plain version (fp32), within 5 × 2e-5 (fp32) / 2e-2
+    (bf16, ``flash_attention``'s limit) of the largest reference gradient
+    of each; bitwise the same on a second call.  The ragged shapes cut C,
+    d and f inside a tile (f 40 and 104 are not multiples of 32)."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(12)
+    args = (_t(rng.normal(size=(E, C, d)) * 0.5, dt, cuda),
+            _t(rng.normal(size=(E, d, f)) * d ** -0.5, dt, cuda),
+            _t(rng.normal(size=(E, d, f)) * d ** -0.5, dt, cuda),
+            _t(rng.normal(size=(E, f, d)) * f ** -0.5, dt, cuda))
+    dout = _t(rng.normal(size=(E, C, d)), dt, cuda)
+    n0 = MG.bwd_launches
+    got = _grads(MG.moe_gmm, args, dout)
+    again = _grads(MG.moe_gmm, args, dout)
+    torch.cuda.synchronize()
+    assert MG.bwd_launches == n0 + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = _grads(lambda *a: moe_gmm_ref(*a).float(),
+                 [x.float() for x in args], dout.float())
+    tol = 2e-2 if dt == torch.bfloat16 else _tol(dt) * 5
+    _assert_grads_close(got, [r.to(dt) for r in ref], tol, f"moe_gmm {dtype}")
+
+
+def test_train_grads_match_cpu_at_full_width(cuda):
+    """granite-moe-1b-a400m at full width, 2 layers, fp32: one
+    ``loss_fn`` backward on the card (both kernels and their backward
+    kernels, one launch of each per layer) against the same weights'
+    gradients on the CPU (plain versions), every parameter within 1e-4 of
+    its largest CPU gradient — after checking that both runs routed every
+    token to the same experts with the same keep masks."""
+    from repro_torch.models import moe as M
+
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m"),
+                              dtype="float32", n_layers=2)
+    p_cpu = TM.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    toks = np.random.default_rng(13).integers(0, cfg.vocab, size=(2, 257))
+    routes = {}
+    real = M.dispatch_combine
+
+    def spy(x, gates, ids, pos, keep, *a, **k):
+        routes.setdefault(str(x.device.type), []).append(
+            (ids.cpu(), keep.cpu()))
+        return real(x, gates, ids, pos, keep, *a, **k)
+
+    grads = {}
+    M.dispatch_combine = spy
+    try:
+        for dev in ("cpu", cuda):
+            p = tree_map(lambda t: t.detach().to(dev).clone()
+                         .requires_grad_(True), p_cpu)
+            leaves = tree_leaves(p)
+            batch = {"tokens": torch.tensor(toks[:, :-1], device=dev),
+                     "labels": torch.tensor(toks[:, 1:], device=dev)}
+            nf, nm = FA.bwd_launches, MG.bwd_launches
+            TM.loss_fn(p, cfg, batch).backward()
+            if dev != "cpu":
+                torch.cuda.synchronize()
+                assert FA.bwd_launches == nf + cfg.n_layers
+                assert MG.bwd_launches == nm + cfg.n_layers
+            grads[str(torch.device(dev).type)] = [t.grad.cpu() for t in leaves]
+    finally:
+        M.dispatch_combine = real
+    for (ic, kc), (ig, kg) in zip(routes["cpu"], routes["cuda"]):
+        assert torch.equal(ic, ig) and torch.equal(kc, kg), \
+            "a route flipped between the card and the CPU (near-tie)"
+    for gc, gg in zip(grads["cpu"], grads["cuda"]):
+        assert bool(torch.isfinite(gg).all())
+        assert float((gg - gc).abs().max()) <= 1e-4 * float(gc.abs().max())
 
 
 def test_flash_attention_refuses_unaligned_bf16(cuda):

@@ -4,8 +4,9 @@ fallback.
 * Every module of ``src/repro_torch`` and ``chip_smoke.py`` imports
   neither ``jax``/``jaxlib`` nor ``repro``/``repro.*`` (checked with
   ``ast``, so nothing needs to be imported to find out).
-* The copied host modules (``sched/``, ``obs/``) are byte-identical to
-  the reference's, except ``ExpertCapacityProvider.residual/overflow``.
+* The copied host modules (``sched/``, ``obs/``, ``data/pool.py`` and
+  ``data/pipeline.py``) are byte-identical to the reference's, except
+  ``ExpertCapacityProvider.residual/overflow``.
 * Entry points called without ``device=`` ask for the card and raise
   where there is none; kernel wrappers given CPU tensors run their plain
   version and do not count a launch.
@@ -42,9 +43,10 @@ def test_module_imports_no_jax_and_no_reference(rel):
     assert not bad, f"{rel} imports {bad}"
 
 
-HOST_COPIES = sorted(str(p.relative_to(PORT))
-                     for sub in ("sched", "obs")
-                     for p in (PORT / sub).glob("*.py"))
+HOST_COPIES = sorted([str(p.relative_to(PORT))
+                      for sub in ("sched", "obs")
+                      for p in (PORT / sub).glob("*.py")]
+                     + ["data/pool.py", "data/pipeline.py"])
 
 
 @pytest.mark.parametrize("rel", HOST_COPIES)
@@ -62,9 +64,11 @@ def test_host_modules_are_verbatim_copies(rel):
 def _entry_points():
     from repro_torch import bridge
     from repro_torch.configs import get_config
-    from repro_torch.launch import serve
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import serve, train
     from repro_torch.models import model as TM
     from repro_torch.serve.batcher import ContinuousBatcher
+    from repro_torch.train.trainer import TrainerConfig, run_training
 
     cfg = get_config("qwen2.5-32b", smoke=True)
     return {
@@ -74,12 +78,17 @@ def _entry_points():
         "bridge.to_torch": lambda: bridge.to_torch({"a": [1.0]}),
         "launch.serve.main": lambda: serve.main(
             ["--arch", "qwen2.5-32b", "--smoke"]),
+        "run_training": lambda: run_training(
+            cfg, ShapeConfig("s", 8, 2, "train"), TrainerConfig(steps=1)),
+        "launch.train.main": lambda: train.main(
+            ["--arch", "qwen2.5-32b", "--smoke", "--steps", "1"]),
     }
 
 
 @pytest.mark.parametrize("name", ["init_params", "init_cache",
                                   "ContinuousBatcher", "bridge.to_torch",
-                                  "launch.serve.main"])
+                                  "launch.serve.main", "run_training",
+                                  "launch.train.main"])
 def test_entry_point_without_device_needs_the_card(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device works")

@@ -167,19 +167,20 @@ def test_moe_gmm_refuses_shapes_off_the_8_grid():
 
 
 def test_refuse_grad():
-    """The CUDA wrappers' guard: it raises in grad mode for an input that
-    requires grad (naming the kernel and ROADMAP Queue 1 item 8), passes
-    under no_grad, and passes for tensors that do not require grad."""
+    """The guard of the CUDA wrapper without a backward kernel
+    (``ssm_scan``): it raises in grad mode for an input that requires grad
+    (naming the kernel and ROADMAP Queue 1 item 15), passes under no_grad,
+    and passes for tensors that do not require grad."""
     from repro_torch.kernels import _build
 
     w = torch.zeros(3, requires_grad=True)
     x = torch.zeros(3)
-    with pytest.raises(RuntimeError, match="moe_gmm.*Queue 1 item 8"):
-        _build.refuse_grad("moe_gmm", x, w)
+    with pytest.raises(RuntimeError, match="ssm_scan.*Queue 1 item 15"):
+        _build.refuse_grad("ssm_scan", x, w)
     with torch.no_grad():
-        _build.refuse_grad("moe_gmm", x, w)
-    _build.refuse_grad("moe_gmm", x, x)
-    _build.refuse_grad("moe_gmm", w.detach())
+        _build.refuse_grad("ssm_scan", x, w)
+    _build.refuse_grad("ssm_scan", x, x)
+    _build.refuse_grad("ssm_scan", w.detach())
 
 
 def test_plain_versions_stay_differentiable_on_cpu():
