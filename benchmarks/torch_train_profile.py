@@ -1,10 +1,13 @@
 """Where a training step of the port spends its time, on the card.
 
-    PYTHONPATH=src python -m benchmarks.torch_train_profile [--warmup 1] [--steps 2] [--seed 0]
+    PYTHONPATH=src python -m benchmarks.torch_train_profile [--arch granite-moe-1b-a400m] [--warmup 1] [--steps 2] [--seed 0]
 
-Runs the training step of ``chip_smoke.py`` (granite-moe-1b-a400m at full
-width, bf16, random weights from ``--seed``; seq 1024, global batch 8 in 2
-microbatches, policy ``afe``, sched policy ``dlbc``, AdamW), lets
+Runs a training step of ``chip_smoke.py`` at full width, bf16, random
+weights from ``--seed``, policy ``afe``, sched policy ``dlbc``, AdamW:
+granite-moe-1b-a400m (the default) at seq 1024 and global batch 8 in 2
+microbatches, or ``--arch hymba-1.5b`` at seq 1024 and global batch 8 in
+8 microbatches of one sequence (its fp32 scan tensors leave no room for
+two); lets
 ``--warmup`` steps pass, then records ``--steps`` steps under
 ``torch.profiler`` (CPU and CUDA activity) and prints one JSON line: the
 wall time of the window, the device busy share, host operator calls and
@@ -26,8 +29,10 @@ import torch
 from torch.autograd import DeviceType
 
 #: the port's hand-written kernels, by the names their launches carry
-PORT_KERNELS = ("attn_tc_kernel", "attn_kernel", "attn_bwd_dq_kernel",
-                "attn_bwd_dkv_kernel", "gmm_kernel", "split_sum_kernel")
+PORT_KERNELS = ("attn_tc_kernel", "attn_kernel", "attn_bwd_dq",
+                "attn_bwd_dkv", "gmm_kernel", "split_sum_kernel", "ssm_scan")
+#: microbatches of the global batch of 8 sequences, per architecture
+MICROBATCHES = {"granite-moe-1b-a400m": 2, "hymba-1.5b": 8}
 
 
 def summary(prof, wall_ms: float, steps: int) -> dict:
@@ -61,6 +66,8 @@ def summary(prof, wall_ms: float, steps: int) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", default="granite-moe-1b-a400m",
+                    choices=sorted(MICROBATCHES))
     ap.add_argument("--warmup", type=int, default=1)
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
@@ -73,8 +80,9 @@ def main(argv=None) -> int:
     from chip_smoke import train_setup
     from repro_torch.configs import get_config
 
-    cfg = get_config("granite-moe-1b-a400m")
-    step, params, opt, batch, shape = train_setup(torch, cfg, args.seed)
+    cfg = get_config(args.arch)
+    step, params, opt, batch, shape = train_setup(
+        torch, cfg, args.seed, microbatches=MICROBATCHES[args.arch])
     for _ in range(args.warmup):
         params, opt, _ = step(params, opt, batch)
     torch.cuda.synchronize()

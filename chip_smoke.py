@@ -73,10 +73,16 @@ of bf16 weights exceed the card):
     reference value, each tensor's error printed; the forward's output in
     grad mode within the forward's tolerance, and flash's row
     log-sum-exp too; two calls bitwise equal) at granite's training
-    microbatch (flash: B 4, S 1024,
-    causal, bf16 and fp32, and with a 256 window; phi3's dh 96 at S 2048;
-    moe: E 32, C 1280 bf16 and fp32, and C 8), with the kernel, plain,
-    library (SDPA's or the ``torch.bmm`` chain's backward) and bound times.
+    microbatch (flash: B 4, S 1024, causal, bf16 (tensor cores) and fp32,
+    and with a 256 window; phi3's dh 96 at S 2048; hymba's training
+    microbatch, B 1, S 1024, G 5, window 1024; moe: E 32, C 1280 bf16
+    and fp32, and C 8), with the kernel, plain, library (SDPA's backward,
+    the middle of five rounds, or the ``torch.bmm`` chain's backward) and
+    bound times; ``ssm_scan_bwd``: the backward kernel against
+    ``ssm_scan_bwd_ref`` and autograd through the plain scan (each output
+    within 1e-5 of its largest reference value, two calls bitwise equal)
+    at hymba's and falcon's chunks, with and without ``h0`` and
+    ``dh_last``.
 12. ``train_grads``: granite at full width, 2 layers, fp32: one
     ``loss_fn`` backward on the card against the same weights' gradients
     on the CPU — the same expert routes first, then every gradient within
@@ -90,14 +96,20 @@ of bf16 weights exceed the card):
     ``repro_torch.launch.train`` (8 smoke steps, checkpoints every 2, a
     crash after step 5, then the same run resumes from step 4) against an
     uninterrupted run, final losses within 1e-5.
+14. hymba-1.5b training: ``train_grads`` at full width, 2 layers, fp32,
+    the scan in two chained 128-token chunks; ``train`` at full width (32
+    layers, bf16), seq 1024, global batch 8 in 8 microbatches, four AdamW
+    steps, with exactly 32 × 8 launches of ``flash_attention`` and its
+    backward and 32 × 4 × 8 of ``ssm_scan`` and its backward per step.
 
 Each main-path run (each forward of phases 4, 7, 9 and 10; the serve
 CLI and the batcher run of phase 5 for ``moe_gmm``; the four steps of
-phase 13 for the backward kernels) zeroes the launch counters just before
-it and reads them just after; the ``kernels`` line takes ``moe_gmm``'s
+phases 13 and 14 for the backward kernels) zeroes the launch counters
+just before it and reads them just after; the ``kernels`` line takes ``moe_gmm``'s
 count from the serve CLI, ``ssm_scan``'s from the fp32 falcon-mamba-7b
-forward, ``flash_attention``'s from the bf16 phi3-mini forward, and
-``flash_attention_bwd``'s and ``moe_gmm_bwd``'s from phase 13.  Each
+forward, ``flash_attention``'s from the bf16 phi3-mini forward,
+``flash_attention_bwd``'s and ``moe_gmm_bwd``'s from phase 13 and
+``ssm_scan_bwd``'s from phase 14.  Each
 phase's wall time is printed after it.  Launches made to compare a kernel with its plain
 version are not counted.  Every phase prints JSON lines and raises on
 failure.  The second-to-last line is the ``kernels`` JSON and the last
@@ -467,8 +479,12 @@ def phase_flash_bwd(torch, cases) -> list:
                 enable_gqa=True)
             if backward:
                 torch.autograd.grad(o, lib_in, dout.transpose(1, 2))
-        lib_ms = time_ms(torch, lambda: library(True), 10) \
-            - time_ms(torch, lambda: library(False), 10)
+        # SDPA's backward: forward + backward less forward, in five
+        # rounds (its single rounds spread by 2x between calls)
+        lib_rounds = sorted(time_ms(torch, lambda: library(True), 10)
+                            - time_ms(torch, lambda: library(False), 10)
+                            for _ in range(5))
+        lib_ms = lib_rounds[2]
         pairs = attention_flops(S, S, 1, 1, 1, True, window) / 4
         # q, k, v, out, dout and lse read once; dq, dk, dv written once.
         # FLOPs: S = q k^T recomputed, dP = dO v^T, dv, dq and dk: 10·dh
@@ -487,7 +503,8 @@ def phase_flash_bwd(torch, cases) -> list:
                    q, k, v, out, lse, dout, **kw), 10),
                "plain_ms": time_ms(torch, lambda: torch.autograd.grad(
                    ref_out, ref_in, dout.float(), retain_graph=True), 5),
-               "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+               "library_ms": lib_ms, "library_rounds_ms": lib_rounds,
+               "bound_ms": b_ms, "bound_by": b_by}
         emit(row)
         rows.append(row)
         del q, k, v, dout, ref_out, ref_in, out, lse, lib_in
@@ -780,6 +797,88 @@ def phase_ssm_scan(torch) -> list:
     return rows
 
 
+def phase_ssm_scan_bwd(torch) -> list:
+    """The backward kernel of ``ssm_scan`` (d_dA, d_dBx, dC, dh0) against
+    the plain backward ``ssm_scan_bwd_ref`` and against autograd through
+    the plain scan, each output within 1e-5 × its largest reference value,
+    two calls bitwise equal, at the main path's chunks: hymba-1.5b's (B 1,
+    L 256, Di 3200) and falcon-mamba-7b's (Di 8192), from a zero state
+    with no ``dh_last`` (a sequence's only chunk) and from a carried state
+    with one (the middle chunks)."""
+    from repro_torch.kernels.ssm_scan import ssm_scan as SS
+    from repro_torch.kernels.ssm_scan.ref import (ssm_scan_bwd_ref,
+                                                  ssm_scan_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    tol = 1e-5
+    names = ("d_dA", "d_dBx", "dC", "dh0")
+    rows = []
+    for what, B, L, Di, N, carried in (
+            ("hymba chunk", 1, 256, 3200, 16, False),
+            ("hymba chunk, carried state", 1, 256, 3200, 16, True),
+            ("falcon chunk", 1, 256, 8192, 16, False),
+            ("falcon chunk, carried state", 1, 256, 8192, 16, True)):
+        dA = torch.rand(B, L, Di, N, generator=gen, device="cuda") * 0.5 + 0.5
+        dBx = torch.randn(B, L, Di, N, generator=gen, device="cuda") * 0.1
+        C = torch.randn(B, L, N, generator=gen, device="cuda")
+        dy = torch.randn(B, L, Di, generator=gen, device="cuda")
+        h0, dh = ((torch.randn(B, Di, N, generator=gen, device="cuda")
+                   for _ in range(2)) if carried else (None, None))
+        got = SS.ssm_scan_bwd(dA, dBx, C, h0, dy, dh)
+        again = SS.ssm_scan_bwd(dA, dBx, C, h0, dy, dh)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)
+                   if a is not None):
+            raise AssertionError(f"ssm_scan_bwd {what}: two calls differ")
+        plain = ssm_scan_bwd_ref(dA, dBx, C, h0, dy, dh)
+        leaves = [t.clone().requires_grad_(True) for t in (dA, dBx, C, h0)
+                  if t is not None]
+        y, h = ssm_scan_ref(*leaves)
+        loss = (y * dy).sum() + ((h * dh).sum() if carried else 0.0)
+        auto = torch.autograd.grad(loss, leaves)
+        del y, h, loss, leaves
+        rel, err = {}, 0.0
+        for name, g, r, a in zip(names, got, plain, auto + (None,)):
+            if g is None:
+                continue
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"ssm_scan_bwd {what}: {name} "
+                                     f"non-finite")
+            for ref, against in ((r, "plain"), (a, "autograd")):
+                if ref is None:
+                    continue
+                e, scale = float((g - ref).abs().max()), \
+                    float(ref.abs().max())
+                if e > tol * scale:
+                    raise AssertionError(
+                        f"ssm_scan_bwd {what}: {name} against {against} "
+                        f"max |Δ| {e} beyond {tol} × {scale}")
+                err = max(err, e)
+                rel[f"{name} vs {against}"] = e / max(scale, 1e-30)
+        # dA, dBx, C, dy (and h0, dh_last) read once; d_dA, d_dBx, dC
+        # (and dh0) written once; ~10 FLOPs per state and step
+        state = B * L * Di * N
+        nbytes = 4 * (4 * state + 2 * B * L * N + B * L * Di
+                      + (3 * B * Di * N if carried else 0))
+        b_ms, b_by = bound(nbytes, 10.0 * state, "float32")
+        row = {"phase": "ssm_scan_bwd", "shape": what, "B": B, "L": L,
+               "Di": Di, "N": N, "h0_and_dh_last": carried,
+               "dtype": "float32", "max_abs_err": err,
+               "err_over_max_ref": rel, "tol_over_max_ref": tol,
+               "bitwise_repeatable": True,
+               "kernel_ms": time_ms(torch, lambda: SS.ssm_scan_bwd(
+                   dA, dBx, C, h0, dy, dh), 20),
+               "plain_ms": time_ms(torch, lambda: ssm_scan_bwd_ref(
+                   dA, dBx, C, h0, dy, dh), 2, warmup=1),
+               # no single PyTorch call computes this recurrence
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        emit(row)
+        rows.append(row)
+        del dA, dBx, C, dy, h0, dh, got, again, plain, auto
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phase 8: falcon-mamba-7b in bf16, timed
 # ---------------------------------------------------------------------------
@@ -892,19 +991,22 @@ def phase_wide_bf16(torch, cfg, card: str, prompt_len: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def train_setup(torch, cfg, seed: int = SEED):
+def train_setup(torch, cfg, seed: int = SEED, seq_len: int = 1024,
+                global_batch: int = 8, microbatches: int = 2):
     """The training step of phase 13, which
     ``benchmarks/torch_train_profile.py`` profiles: ``cfg`` on the card
     with random weights from ``seed``, ``init_opt_state`` and
-    ``build_train_step`` (seq 1024, global batch 8 in 2 microbatches,
-    policy ``afe``, sched policy ``dlbc``, AdamW at lr 1e-4 with warmup 1)
-    and one fixed batch.  Returns (step, params, opt, batch, shape)."""
+    ``build_train_step`` (``seq_len`` tokens, ``global_batch`` sequences
+    in ``microbatches``, policy ``afe``, sched policy ``dlbc``, AdamW at lr
+    1e-4 with warmup 1) and one fixed batch.  Returns (step, params, opt,
+    batch, shape)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.models import model as TM
     from repro_torch.train.optimizer import AdamWConfig, init_opt_state
     from repro_torch.train.train_step import StepConfig, build_train_step
 
-    shape = ShapeConfig("train", 1024, 8, "train", microbatches=2)
+    shape = ShapeConfig("train", seq_len, global_batch, "train",
+                        microbatches=microbatches)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = TM.init_params(cfg, gen, device="cuda")
     ocfg = AdamWConfig(lr=1e-4, warmup_steps=1)
@@ -919,17 +1021,54 @@ def train_setup(torch, cfg, seed: int = SEED):
     return step, params, opt, batch, shape
 
 
-def phase_train_grads(torch, cfg) -> dict:
-    """granite at full width, 2 layers, fp32 (TF32 off), B 2, S 256: one
-    ``loss_fn`` backward on the card (the kernels and their backward
-    kernels) against the same weights' gradients on the CPU (the plain
-    versions).  The expert ids and keep masks of both runs are compared
-    first (a route that flips on a near-tie is reported as such); then
-    every parameter's gradient must be within 1e-4 of its largest CPU
-    gradient (the ``moe_gmm`` fp32 tolerance)."""
-    from repro_torch.device import parity_mode
+def kernel_counters():
+    """The wrappers' launch counters, by kernel name: (module, attribute)."""
     from repro_torch.kernels.flash_attention import flash_attention as FA
     from repro_torch.kernels.moe_dispatch import moe_gmm as MG
+    from repro_torch.kernels.ssm_scan import ssm_scan as SS
+
+    return {"flash_attention": (FA, "launches"),
+            "flash_attention_bwd": (FA, "bwd_launches"),
+            "moe_gmm": (MG, "launches"), "moe_gmm_bwd": (MG, "bwd_launches"),
+            "ssm_scan": (SS, "launches"), "ssm_scan_bwd": (SS, "bwd_launches")}
+
+
+def read_counters() -> dict:
+    return {k: getattr(m, a) for k, (m, a) in kernel_counters().items()}
+
+
+def zero_counters() -> None:
+    for m, a in kernel_counters().values():
+        setattr(m, a, 0)
+
+
+def expected_launches(cfg, seq_len: int, microbatches: int,
+                      ssm_chunk: int = 256) -> dict:
+    """Each kernel's launches in one forward + backward per microbatch:
+    one per attention layer, one per MoE layer, one per mamba layer and
+    ``ssm_chunk`` tokens; each backward kernel as often as its forward."""
+    L = cfg.n_layers
+    per = {"flash_attention": 0 if cfg.family == "ssm" else L,
+           "moe_gmm": L if cfg.n_experts else 0,
+           "ssm_scan": L * max(1, seq_len // ssm_chunk)
+           if cfg.family in ("ssm", "hybrid") else 0}
+    out = {}
+    for k, n in per.items():
+        out[k] = out[k + "_bwd"] = n * microbatches
+    return out
+
+
+def phase_train_grads(torch, cfg, S: int = 256, ssm_chunk: int = 256
+                      ) -> dict:
+    """``cfg`` at full width, 2 layers, fp32 (TF32 off), B 2 x ``S``
+    tokens: one ``loss_fn`` backward on the card (the kernels and their
+    backward kernels; mamba layers in ``S / ssm_chunk`` chained chunks)
+    against the same weights' gradients on the CPU (the plain versions).
+    For MoE the expert ids and keep masks of both runs are compared first
+    (a route that flips on a near-tie is reported as such); then every
+    parameter's gradient must be within 1e-4 of its largest CPU gradient
+    (the ``moe_gmm`` fp32 tolerance)."""
+    from repro_torch.device import parity_mode
     from repro_torch.models import model as TM
     from repro_torch.models import moe as M
     from repro_torch.tree import tree_leaves, tree_map
@@ -938,13 +1077,13 @@ def phase_train_grads(torch, cfg) -> dict:
     c = dataclasses.replace(cfg, dtype="float32", n_layers=2)
     p_cpu = TM.init_params(c, torch.Generator().manual_seed(SEED),
                            device="cpu")
-    toks = torch.randint(0, c.vocab, (2, 257),
+    toks = torch.randint(0, c.vocab, (2, S + 1),
                          generator=torch.Generator().manual_seed(SEED))
-    routes, grads, launches = {}, {}, {}
+    routes, grads, launches = {"cpu": [], "cuda": []}, {}, {}
     real = M.dispatch_combine
 
     def spy(x, gates, ids, pos, keep, *a, **k):
-        routes.setdefault(x.device.type, []).append((ids.cpu(), keep.cpu()))
+        routes[x.device.type].append((ids.cpu(), keep.cpu()))
         return real(x, gates, ids, pos, keep, *a, **k)
 
     M.dispatch_combine = spy
@@ -954,15 +1093,11 @@ def phase_train_grads(torch, cfg) -> dict:
                          .requires_grad_(True), p_cpu)
             batch = {"tokens": toks[:, :-1].to(dev),
                      "labels": toks[:, 1:].to(dev)}
-            FA.launches = FA.bwd_launches = MG.launches = 0
-            MG.bwd_launches = 0
-            TM.loss_fn(p, c, batch).backward()
+            zero_counters()
+            TM.loss_fn(p, c, batch, ssm_chunk=ssm_chunk).backward()
             if dev == "cuda":
                 torch.cuda.synchronize()
-                launches = {"flash_attention": FA.launches,
-                            "flash_attention_bwd": FA.bwd_launches,
-                            "moe_gmm": MG.launches,
-                            "moe_gmm_bwd": MG.bwd_launches}
+                launches = read_counters()
             grads[dev] = [t.grad.cpu() for t in tree_leaves(p)]
             del p
     finally:
@@ -975,55 +1110,58 @@ def phase_train_grads(torch, cfg) -> dict:
             raise AssertionError("train_grads: non-finite card gradient")
         worst = max(worst, float((gg - gc).abs().max())
                     / max(float(gc.abs().max()), 1e-30))
+    expect = expected_launches(c, S, 1, ssm_chunk)
     row = {"phase": "train_grads", "arch": cfg.name, "dtype": "float32",
-           "layers": 2, "d_model": c.d_model, "B": 2, "S": 256,
+           "layers": 2, "d_model": c.d_model, "B": 2, "S": S,
+           "ssm_chunk": ssm_chunk,
            "params": sum(t.numel() for t in tree_leaves(p_cpu)),
            "leaves": len(grads["cpu"]), "routed_layers": len(routes["cuda"]),
            "route_flips": flips, "max_err_over_max_cpu_grad": worst,
-           "tol": 1e-4, "launches": launches}
+           "tol": 1e-4, "launches": launches, "expected_launches": expect}
     emit(row)
     if flips:
         raise AssertionError(f"train_grads: {flips} layer(s) routed a token "
                              f"differently on the card (near-tie)")
     if worst > 1e-4:
         raise AssertionError(f"train_grads: gradient error {worst} > 1e-4")
-    expect = {k: 2 for k in launches}
     if launches != expect:
         raise AssertionError(f"train_grads: launches {launches}")
     return row
 
 
-def phase_train(torch, cfg, card: str, steps: int = 4) -> dict:
-    """granite at full width (24 layers, bf16): the step of
-    :func:`train_setup` (``build_train_step`` + ``init_opt_state``, seq
-    1024, global batch 8 in 2 microbatches, policy ``afe``, sched policy
-    ``dlbc``); ``steps`` AdamW steps (lr 1e-4, warmup 1) on one fixed
-    batch.  Every step must launch each kernel and each backward kernel
-    exactly 24 × 2 times; losses finite and falling."""
-    from repro_torch.kernels.flash_attention import flash_attention as FA
-    from repro_torch.kernels.moe_dispatch import moe_gmm as MG
+def phase_train(torch, cfg, card: str, steps: int = 4, seq_len: int = 1024,
+                global_batch: int = 8, microbatches: int = 2) -> dict:
+    """``cfg`` at full width (bf16): the step of :func:`train_setup`
+    (``build_train_step`` + ``init_opt_state``, policy ``afe``, sched
+    policy ``dlbc``); ``steps`` AdamW steps (lr 1e-4, warmup 1) on one
+    fixed batch.  Every step must launch each kernel and each backward
+    kernel exactly as :func:`expected_launches` says (granite: 24 × 2 of
+    ``flash_attention`` and ``moe_gmm``; hymba-1.5b: 32 × 8 of
+    ``flash_attention`` and 32 × 4 chunks × 8 of ``ssm_scan``); losses
+    finite and falling."""
     from repro_torch.tree import tree_leaves
 
     torch.cuda.reset_peak_memory_stats()
-    step, params, opt, batch, shape = train_setup(torch, cfg)
+    step, params, opt, batch, shape = train_setup(
+        torch, cfg, seq_len=seq_len, global_batch=global_batch,
+        microbatches=microbatches)
     S, B, Mb = shape.seq_len, shape.global_batch, shape.microbatches
+    expect = expected_launches(cfg, S, Mb)
     losses, norms, skipped, step_ms, per_step = [], [], [], [], []
     torch.cuda.synchronize()
-    FA.launches = FA.bwd_launches = MG.launches = MG.bwd_launches = 0
+    zero_counters()
     for _ in range(steps):
-        before = (FA.launches, FA.bwd_launches, MG.launches, MG.bwd_launches)
+        before = read_counters()
         t0 = time.perf_counter()
         params, opt, m = step(params, opt, batch)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-        after = (FA.launches, FA.bwd_launches, MG.launches, MG.bwd_launches)
-        per_step.append([a - b for a, b in zip(after, before)])
+        after = read_counters()
+        per_step.append({k: after[k] - before[k] for k in after})
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
         skipped.append(int(m["nonfinite_skipped"]))
-    launches = {"flash_attention": FA.launches,
-                "flash_attention_bwd": FA.bwd_launches,
-                "moe_gmm": MG.launches, "moe_gmm_bwd": MG.bwd_launches}
+    launches = read_counters()
     rest = sum(step_ms[1:]) / max(1, len(step_ms) - 1)
     n_params = sum(t.numel() for t in tree_leaves(params))
     row = {"phase": "train", "arch": cfg.name, "dtype": cfg.dtype,
@@ -1036,8 +1174,8 @@ def phase_train(torch, cfg, card: str, steps: int = 4) -> dict:
            "tokens_per_s": B * S / rest * 1e3,
            "max_memory_allocated_gb":
                torch.cuda.max_memory_allocated() / 1e9,
-           "launches_per_step": [dict(zip(launches, p)) for p in per_step],
-           "launches": launches}
+           "launches_per_step": per_step,
+           "expected_launches_per_step": expect, "launches": launches}
     emit(row)
     del params, opt, m
     torch.cuda.empty_cache()
@@ -1045,8 +1183,9 @@ def phase_train(torch, cfg, card: str, steps: int = 4) -> dict:
         raise AssertionError("train: non-finite loss or gradient norm")
     if sum(skipped) or not losses[-1] < losses[0]:
         raise AssertionError(f"train: losses {losses}, skipped {skipped}")
-    if any(p != [cfg.n_layers * Mb] * 4 for p in per_step):
-        raise AssertionError(f"train: launches per step {per_step}")
+    if any(p != expect for p in per_step):
+        raise AssertionError(f"train: launches per step {per_step}, "
+                             f"expected {expect}")
     return row
 
 
@@ -1187,12 +1326,18 @@ def main() -> int:
     # steps at full width; the training CLI with a crash and a resume
     fa_bwd_rows = timed(phase_flash_bwd, torch, (
         (cfg, 4, 1024, "bfloat16", 0), (cfg, 4, 1024, "float32", 0),
-        (cfg, 4, 1024, "bfloat16", 256), (phi3, 1, 2048, "bfloat16", 0)))
+        (cfg, 4, 1024, "bfloat16", 256), (phi3, 1, 2048, "bfloat16", 0),
+        (hymba, 1, 1024, "bfloat16", hw)))
     moe_bwd_rows = timed(phase_moe_gmm_bwd, torch, cfg, (
         ("bfloat16", (1280, 8)), ("float32", (1280,))))
+    ssm_bwd_rows = timed(phase_ssm_scan_bwd, torch)
     timed(phase_train_grads, torch, cfg)
     train = timed(phase_train, torch, cfg, smi)
     timed(phase_train_cli, torch, cfg.name)
+    # hymba-1.5b: 2-layer fp32 gradients in two chained scan chunks, then
+    # full-width bf16 AdamW steps, seq 1024, 8 microbatches of 1 sequence
+    timed(phase_train_grads, torch, hymba, 256, 128)
+    hymba_train = timed(phase_train, torch, hymba, smi, 4, 1024, 8, 8)
 
     moe_main = next(r for r in moe_rows
                     if r["C"] == 8 and r["dtype"] == "bfloat16")
@@ -1200,6 +1345,7 @@ def main() -> int:
                       if r["arch"] == phi3.name and r["S"] == 2048)
     ssm_main = ssm_rows[0]
     fa_bwd_main, moe_bwd_main = fa_bwd_rows[0], moe_bwd_rows[0]
+    ssm_bwd_main = ssm_bwd_rows[1]
     kernels = [
         {"name": "moe_gmm", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_gmm.cu",
@@ -1252,6 +1398,16 @@ def main() -> int:
          "bound_ms": moe_bwd_main["bound_ms"],
          "bound_by": moe_bwd_main["bound_by"],
          "library_ms": moe_bwd_main["library_ms"]},
+        {"name": "ssm_scan_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssm_scan.cu",
+         "replaces": "src/repro/kernels/ssm_scan/ssm_scan.py:72",
+         "launches": hymba_train["launches"]["ssm_scan_bwd"],
+         "shape": "B=1 L=256 Di=3200 N=16 fp32, carried state (hymba-1.5b "
+                  "training, one launch per layer and 256-token chunk)",
+         "max_abs_err": ssm_bwd_main["max_abs_err"],
+         "ms": ssm_bwd_main["kernel_ms"], "plain_ms": ssm_bwd_main["plain_ms"],
+         "bound_ms": ssm_bwd_main["bound_ms"],
+         "bound_by": ssm_bwd_main["bound_by"], "library_ms": None},
     ]
     for k in kernels:
         if k["launches"] <= 0:

@@ -15,11 +15,10 @@ of the slowest).  Pointer and stream arguments are ``c_void_p`` and every
 entry point returns ``cudaGetLastError()``; :func:`check` raises on a
 non-zero code, so a refused launch never passes silently.
 
-``flash_attention`` and ``moe_gmm`` have hand-written backward kernels
-(``flash_attention_bwd.cu``, ``moe_gmm_bwd_launch`` in ``moe_gmm.cu``),
-which their wrappers' ``torch.autograd.Function`` launches.  ``ssm_scan``
-has none yet: :func:`refuse_grad` makes its wrapper say so rather than
-return a result without a gradient.
+Every kernel has a hand-written backward (``flash_attention_bwd.cu``,
+``moe_gmm_bwd_launch`` in ``moe_gmm.cu``, ``ssm_scan_bwd_launch`` in
+``ssm_scan.cu``), which its wrapper's ``torch.autograd.Function``
+launches.
 """
 
 from __future__ import annotations
@@ -54,6 +53,8 @@ SIGNATURES = {
                             [_P] * 10 + [_I] * 9 + [_P]),
     "ssm_scan": ("ssm_scan", "ssm_scan_launch",
                  [_P] * 6 + [_I] * 4 + [_P]),
+    "ssm_scan_bwd": ("ssm_scan", "ssm_scan_bwd_launch",
+                     [_P] * 11 + [_I] * 4 + [_P]),
 }
 #: the sources, one library (and one ``nvcc``) each
 SOURCES = tuple(sorted({src for src, _, _ in SIGNATURES.values()}))
@@ -175,18 +176,6 @@ def cuda_inputs(name: str, *tensors) -> int:
 def needs_grad(*tensors) -> bool:
     """Grad mode is on and an input requires grad."""
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
-
-
-def refuse_grad(name: str, *tensors) -> None:
-    """Raise when :func:`needs_grad`: a kernel without a backward kernel
-    (``ssm_scan``, ROADMAP Queue 1 item 15) would return a result filled
-    through ``ctypes`` that silently carries no gradient."""
-    if needs_grad(*tensors):
-        raise RuntimeError(
-            f"{name}: the CUDA kernel has no backward yet (ROADMAP Queue 1 "
-            f"item 15: the ssm_scan backward and hymba-1.5b training); call "
-            f"it under torch.no_grad() or on tensors that do not require "
-            f"grad")
 
 
 def all_on_cpu(*tensors) -> bool:

@@ -11,7 +11,8 @@ plain version (:func:`~.ref.attention_ref`, which autograd differentiates);
 CUDA tensors launch the kernel or raise.  On CUDA tensors in grad mode
 the call goes through :class:`FlashAttentionFn`: the forward also writes
 each row's log-sum-exp, and the backward launches the backward kernels
-(dq with the row sums ``D = rowsum(dO ⊙ O)``, then dk/dv, no atomics).
+(dq with the row sums ``D = rowsum(dO ⊙ O)``, then dk/dv, no atomics;
+bf16 on the tensor cores, fp32 on the CUDA cores).
 ``launches`` counts forward launches, ``bwd_launches`` backward ones.
 """
 
@@ -86,6 +87,10 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
             q.shape[0], q.shape[2], q.shape[1]) or lse.dtype != torch.float32:
         raise ValueError("flash_attention_bwd: out/dout must match q and lse "
                          "be fp32 (B, H, S)")
+    if code == _build.DTYPE_CODES["torch.bfloat16"] and any(
+            t.data_ptr() % 16 for t in (out, dout)):
+        raise ValueError("flash_attention_bwd: bf16 out/dout must be 16-byte "
+                         "aligned (the kernels load 16-byte vectors)")
     B, S, H, dh = q.shape
     T, KV = k.shape[1], k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)

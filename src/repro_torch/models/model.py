@@ -161,12 +161,13 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     lm_head matmul.  Differentiable on both devices: on CUDA tensors that
     require grad the kernels run under their ``torch.autograd.Function``s,
     whose backward launches the hand-written backward kernels
-    (``flash_attention``, ``moe_gmm``; ``ssm_scan`` has none yet and
-    raises).  ``schedule``/``q_chunk``/``k_chunk`` are accepted for
-    signature parity and have no effect (the kernels bound their loops
-    themselves).  ``remat`` is accepted and has no effect either: autograd
-    keeps every layer's activations (no rematerialisation), and the card
-    runs report the peak memory that costs."""
+    (``flash_attention``, ``moe_gmm``, ``ssm_scan``).
+    ``schedule``/``q_chunk``/``k_chunk`` are accepted for signature parity
+    and have no effect (the kernels bound their loops themselves).
+    ``remat`` is accepted and has no effect either: autograd keeps every
+    layer's activations (no rematerialisation; a mamba layer keeps its
+    fp32 ``dA`` and ``dBx``), and the card runs report the peak memory
+    that costs."""
     kind = _plan(cfg)[0][1]
     x = params["embed"][batch["tokens"].long()]
     for p in _unbind(params["layers"]):

@@ -7,8 +7,11 @@ scan kernel (``kernels/ssm_scan``), which takes the carried state as
 ``h0`` and returns the next one.  The reference's tests hold its chunked
 scan equal to the Pallas kernel.  ``(dA, dBx, C)`` — ``(B, chunk, Di, N)``
 fp32, 2·N× the activation size — are still built one chunk at a time, so
-the working set is the reference's.  Decode updates the layer's
-``conv``/``h`` cache IN PLACE.
+the forward's working set is the reference's; in training the chunks
+differentiate end to end through the kernel's backward (the gradient of
+each chunk's last state flows into the previous chunk), and autograd keeps
+every chunk's ``dA`` and ``dBx`` where the reference rematerialises them.
+Decode updates the layer's ``conv``/``h`` cache IN PLACE.
 """
 
 from __future__ import annotations

@@ -5,7 +5,9 @@ on the machine with the card run ``python -m pytest -m gpu
 tests/test_torch_cuda.py``.  Each kernel is held against its plain
 PyTorch version on the same inputs, at the reference's tolerances
 (``tests/test_kernels.py``: 2e-5 fp32 / 2e-2 bf16, 5× for ``moe_gmm``,
-1e-4 for ``ssm_scan``).
+1e-4 for ``ssm_scan``); backward kernels against autograd through the
+plain versions, each gradient within its tolerance × its largest value
+(``ssm_scan``'s 1e-5).
 """
 
 import dataclasses
@@ -21,7 +23,9 @@ from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.moe_dispatch import moe_gmm as MG  # noqa: E402
 from repro_torch.kernels.moe_dispatch.ref import moe_gmm_ref  # noqa: E402
 from repro_torch.kernels.ssm_scan import ssm_scan as SS  # noqa: E402
-from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref  # noqa: E402
+from repro_torch.kernels.ssm_scan.ref import (  # noqa: E402
+    ssm_scan_bwd_ref, ssm_scan_ref,
+)
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
@@ -189,27 +193,24 @@ def test_moe_gmm_split_k_is_bitwise_repeatable(cuda):
 
 
 def test_kernels_refuse_inputs_that_require_grad(cuda):
-    """Only ``ssm_scan`` has no backward kernel yet: in grad mode it raises
-    for an input that requires grad, naming ROADMAP Queue 1 item 15, and
-    launches under no_grad.  ``flash_attention`` and ``moe_gmm`` now launch
-    their backward kernels and return finite gradients for every input."""
+    """No kernel refuses grad mode any more: ``flash_attention``,
+    ``moe_gmm`` and ``ssm_scan`` each launch their backward kernels once
+    per backward and return finite, non-zero gradients for every input
+    that requires grad, and launch no backward under no_grad."""
     x = torch.randn((2, 8, 64), device=cuda)
     w = torch.randn((2, 64, 32), device=cuda)
     w2 = torch.randn((2, 32, 64), device=cuda)
     q = torch.randn((1, 16, 4, 64), device=cuda)
     kv = torch.randn((1, 16, 2, 64), device=cuda)
-    dA = torch.rand((1, 8, 16, 4), device=cuda)
+    dA = torch.rand((1, 8, 16, 4), device=cuda) * 0.5 + 0.5
+    dBx = torch.randn((1, 8, 16, 4), device=cuda)
     C = torch.randn((1, 8, 4), device=cuda)
-    for i in range(3):
-        args = [a.clone().requires_grad_(j == i)
-                for j, a in enumerate((dA, dA, C))]
-        with pytest.raises(RuntimeError, match="ssm_scan.*Queue 1 item 15"):
-            SS.ssm_scan(*args)
-        with torch.no_grad():
-            SS.ssm_scan(*args)
+    h0 = torch.randn((1, 16, 4), device=cuda)
     calls = {
         "moe_gmm": (MG, MG.moe_gmm, (x, w, w.clone(), w2)),
         "flash_attention": (FA, FA.flash_attention, (q, kv, kv.clone())),
+        "ssm_scan": (SS, lambda *a: torch.cat(
+            [t.flatten() for t in SS.ssm_scan(*a)]), (dA, dBx, C, h0)),
     }
     for name, (mod, fn, args) in calls.items():
         for i in range(len(args)):
@@ -223,6 +224,7 @@ def test_kernels_refuse_inputs_that_require_grad(cuda):
             assert float(g.abs().sum()) > 0, name
             with torch.no_grad():
                 fn(*grad_args)
+            assert mod.bwd_launches == n0 + 1, name
         fn(*args)
     torch.cuda.synchronize()
 
@@ -509,6 +511,73 @@ def test_ssm_scan_kernel_chains_like_one_call(cuda):
         ys.append(y)
     assert torch.equal(torch.cat(ys, dim=1), y_whole)
     assert torch.equal(h, h_whole)
+
+
+# (B, L, Di, N, with h0, with dh_last): ragged and small shapes, then the
+# main path's chunks (hymba-1.5b's Di = 3200 and falcon-mamba-7b's 8192)
+SSM_BWD_CASES = [
+    (2, 77, 200, 16, True, True), (1, 100, 40, 4, False, True),
+    (3, 64, 33, 8, True, False), (1, 256, 3200, 16, False, False),
+    (1, 256, 3200, 16, True, True), (1, 256, 8192, 16, True, True),
+]
+
+
+@pytest.mark.parametrize("B,L,Di,N,with_h0,with_dh", SSM_BWD_CASES)
+def test_ssm_scan_bwd_kernel_matches_plain(cuda, B, L, Di, N, with_h0,
+                                           with_dh):
+    """d_dA, d_dBx, dC and dh0 from the backward kernel against the plain
+    backward ``ssm_scan_bwd_ref`` and against autograd through the plain
+    scan, each within 1e-5 × its largest reference value; bitwise the same
+    on a second call."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    dA = torch.rand(B, L, Di, N, generator=gen, device=cuda) * 0.499 + 0.5
+    dBx = torch.randn(B, L, Di, N, generator=gen, device=cuda) * 0.1
+    C = torch.randn(B, L, N, generator=gen, device=cuda)
+    h0 = torch.randn(B, Di, N, generator=gen, device=cuda) \
+        if with_h0 else None
+    dy = torch.randn(B, L, Di, generator=gen, device=cuda)
+    dh = torch.randn(B, Di, N, generator=gen, device=cuda) \
+        if with_dh else None
+    n0 = SS.bwd_launches
+    got = SS.ssm_scan_bwd(dA, dBx, C, h0, dy, dh)
+    again = SS.ssm_scan_bwd(dA, dBx, C, h0, dy, dh)
+    torch.cuda.synchronize()
+    assert SS.bwd_launches == n0 + 2
+    assert (got[3] is None) == (h0 is None)
+    got, again = [g for g in got if g is not None], \
+        [g for g in again if g is not None]
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = ssm_scan_bwd_ref(dA, dBx, C, h0, dy, dh)
+    _assert_grads_close(got, ref[:len(got)], 1e-5, "ssm_scan_bwd plain")
+    leaves = [t.clone().requires_grad_(True) for t in (dA, dBx, C, h0)
+              if t is not None]
+    y, h = ssm_scan_ref(*leaves)
+    loss = (y * dy).sum() + ((h * dh).sum() if dh is not None else 0.0)
+    _assert_grads_close(got, torch.autograd.grad(loss, leaves), 1e-5,
+                        "ssm_scan_bwd autograd")
+
+
+def test_ssm_scan_bwd_chained_chunks_match_one_call(cuda):
+    """``SsmScanFn`` over four 256-step chunks carrying the state, as the
+    model chains them: the gradients equal one whole-length backward launch
+    within 1e-5 × their largest value, with one backward launch per
+    chunk."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    dA = torch.rand(1, 1024, 512, 16, generator=gen, device=cuda) * 0.5 + 0.5
+    dBx = torch.randn(1, 1024, 512, 16, generator=gen, device=cuda) * 0.1
+    C = torch.randn(1, 1024, 16, generator=gen, device=cuda)
+    dy = torch.randn(1, 1024, 512, generator=gen, device=cuda)
+    whole = SS.ssm_scan_bwd(dA, dBx, C, None, dy)[:3]
+    leaves = [t.clone().requires_grad_(True) for t in (dA, dBx, C)]
+    n0 = SS.bwd_launches
+    h, ys = None, []
+    for t0 in range(0, 1024, 256):
+        y, h = SS.ssm_scan(*(t[:, t0:t0 + 256] for t in leaves), h)
+        ys.append(y)
+    got = torch.autograd.grad((torch.cat(ys, dim=1) * dy).sum(), leaves)
+    torch.cuda.synchronize()
+    assert SS.bwd_launches == n0 + 4
+    _assert_grads_close(list(got), list(whole), 1e-5, "chained ssm_scan_bwd")
 
 
 def test_ssm_scan_refuses_what_it_does_not_take(cuda):

@@ -167,25 +167,36 @@ def test_moe_gmm_refuses_shapes_off_the_8_grid():
 
 
 def test_refuse_grad():
-    """The guard of the CUDA wrapper without a backward kernel
-    (``ssm_scan``): it raises in grad mode for an input that requires grad
-    (naming the kernel and ROADMAP Queue 1 item 15), passes under no_grad,
-    and passes for tensors that do not require grad."""
-    from repro_torch.kernels import _build
+    """``ssm_scan`` has a backward now, so nothing refuses grad mode any
+    more: on CPU tensors that require grad the wrapper runs its plain
+    version under autograd, and the gradients of ``y`` and of the last
+    state (from a carried ``h0``) equal the plain backward
+    ``ssm_scan_bwd_ref``'s within 1e-5 × their largest value."""
+    from repro_torch.kernels.ssm_scan import ssm_scan as SS
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref
 
-    w = torch.zeros(3, requires_grad=True)
-    x = torch.zeros(3)
-    with pytest.raises(RuntimeError, match="ssm_scan.*Queue 1 item 15"):
-        _build.refuse_grad("ssm_scan", x, w)
+    rng = np.random.default_rng(8)
+    B, L, Di, N = 2, 12, 6, 4
+    arrays = (rng.uniform(0.5, 0.999, size=(B, L, Di, N)),
+              rng.normal(size=(B, L, Di, N)) * 0.1,
+              rng.normal(size=(B, L, N)), rng.normal(size=(B, Di, N)))
+    dA, dBx, C, h0 = (torch.tensor(a, dtype=torch.float32,
+                                   requires_grad=True) for a in arrays)
+    dy = torch.tensor(rng.normal(size=(B, L, Di)), dtype=torch.float32)
+    dh = torch.tensor(rng.normal(size=(B, Di, N)), dtype=torch.float32)
+    y, h = SS.ssm_scan(dA, dBx, C, h0)
+    got = torch.autograd.grad((y * dy).sum() + (h * dh).sum(),
+                              (dA, dBx, C, h0))
     with torch.no_grad():
-        _build.refuse_grad("ssm_scan", x, w)
-    _build.refuse_grad("ssm_scan", x, x)
-    _build.refuse_grad("ssm_scan", w.detach())
+        ref = ssm_scan_bwd_ref(dA, dBx, C, h0, dy, dh)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        assert float((g - r).abs().max()) <= 1e-5 * float(r.abs().max())
 
 
 def test_plain_versions_stay_differentiable_on_cpu():
     """On CPU tensors the wrappers run their plain versions, which autograd
-    differentiates: the refusal is the CUDA branch's alone."""
+    differentiates (on CUDA tensors their backward kernels run)."""
     rng = np.random.default_rng(7)
     E, C, d, f = 2, 5, 16, 24
     buf, w1, w3 = (torch.tensor(rng.normal(size=s), dtype=torch.float32,
