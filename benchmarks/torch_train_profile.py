@@ -30,7 +30,8 @@ from torch.autograd import DeviceType
 
 #: the port's hand-written kernels, by the names their launches carry
 PORT_KERNELS = ("attn_tc_kernel", "attn_kernel", "attn_bwd_dq",
-                "attn_bwd_dkv", "gmm_kernel", "split_sum_kernel", "ssm_scan")
+                "attn_bwd_dkv", "gmm_kernel", "wg_kernel", "split_sum_kernel",
+                "ssm_scan")
 #: microbatches of the global batch of 8 sequences, per architecture
 MICROBATCHES = {"granite-moe-1b-a400m": 2, "hymba-1.5b": 8}
 

@@ -82,7 +82,10 @@ of bf16 weights exceed the card):
     ``ssm_scan_bwd_ref`` and autograd through the plain scan (each output
     within 1e-5 of its largest reference value, two calls bitwise equal)
     at hymba's and falcon's chunks, with and without ``h0`` and
-    ``dh_last``.
+    ``dh_last``.  Each backward row prints its plan (``moe_gmm``'s
+    ``backward_plan``: tiles, ring stages, shared memory and grid of the
+    four GEMMs; ``ssm_scan``'s ``bwd_plan``: blocks, clusters, shared
+    memory and the dC scratch).
 12. ``train_grads``: granite at full width, 2 layers, fp32: one
     ``loss_fn`` backward on the card against the same weights' gradients
     on the CPU — the same expert routes first, then every gradient within
@@ -330,8 +333,9 @@ def phase_moe_gmm_bwd(torch, cfg, plan) -> list:
                 if dtype == "float32" else bound(nbytes, flops, dtype)
             row = {"phase": "moe_gmm_bwd", "arch": cfg.name, "E": E, "C": C,
                    "d": d, "f": f, "dtype": dtype,
-                   "plan": [g._asdict() for g in MG.backward_plan(E, C, d,
-                                                                  f)],
+                   "plan": [g._asdict() for g in MG.backward_plan(
+                       E, C, d, f, dt, torch.cuda.get_device_properties(
+                           0).multi_processor_count)],
                    "max_abs_err": err,
                    "max_err_over_max_ref": max(rel.values()),
                    "err_over_max_ref": rel, "tol_over_max_ref": tol,
@@ -863,6 +867,7 @@ def phase_ssm_scan_bwd(torch) -> list:
         b_ms, b_by = bound(nbytes, 10.0 * state, "float32")
         row = {"phase": "ssm_scan_bwd", "shape": what, "B": B, "L": L,
                "Di": Di, "N": N, "h0_and_dh_last": carried,
+               "plan": SS.bwd_plan(B, L, Di, N)._asdict(),
                "dtype": "float32", "max_abs_err": err,
                "err_over_max_ref": rel, "tol_over_max_ref": tol,
                "bitwise_repeatable": True,

@@ -47,7 +47,43 @@
 //     a_small.b_big + a_big.b_small + a_big.b_big in fp32 accumulators,
 //     which keeps fp32 results within 1e-4 of the plain version (one TF32
 //     pass does not).
-//   wgmma, TMA and a persistent grid are later work.
+//   The forward on wgmma, TMA and a persistent grid are later work.
+//
+// Backward (moe_gmm_bwd_launch): dbuf, dw1, dw3, dw2 from dout in four
+//   grouped GEMMs, in this order: kDh (a = buf.w1, b = buf.w3 and dh =
+//   dout.w2^T in fp32, then da, db and h = silu(a) * b, the forward's h),
+//   dw2 = h^T.dout, dw1 | dw3 = buf^T.(da | db), dbuf = da.w1^T + db.w3^T.
+//   What bounds it: operations.  16 * E * C * d * f FLOPs (a and b are
+//   recomputed, not kept): at granite-moe-1b-a400m's training microbatch
+//   (E 32, C 1280, d 1024, f 512) 343.6 GFLOP, 0.347 ms at 989 TFLOP/s,
+//   against 0.13 GB of bf16 operands (0.04 ms at 3.35 TB/s).
+//   What the bf16 design does about it (wg_kernel):
+//   * wgmma.mma_async (bf16 in, fp32 accumulate), the only path to the
+//     card's tensor-core rate, on 128-row output tiles: two consumer
+//     warpgroups of 64 rows each, so every operand byte brought into
+//     shared memory feeds 128 x BN products;
+//   * operands arrive by TMA (cp.async.bulk.tensor, 3-D maps (inner, rows,
+//     expert) made on the host, 128-byte swizzle) into a ring of 4 stages
+//     of 64 K, completing on mbarriers; one producer warp
+//     keeps the ring full while the consumers run, and no thread spends
+//     registers or instructions on addresses.  TMA zero-fills the ragged
+//     edges of C, d and f (and never reads across an expert);
+//   * the transposed operands (A of dw = buf^T or h^T, B of kDh's x.w1 and
+//     of dw, all stored M- or N-contiguous) are read MN-major by the
+//     wgmma descriptor itself: no transposing copy;
+//   * the GEMMs move operands from the L2 cache at about 7 TB/s, so the
+//     tiles are as wide as the registers allow, for FLOPs per byte: dw2,
+//     dw1 | dw3 (one product over buf^T's tile, 128 columns of each) and
+//     dbuf keep one 64 x 256 accumulator per warpgroup (128 x 256 tiles,
+//     85 FLOPs per byte of operands); kDh keeps [a | b] in one 64 x 128
+//     accumulator (one read of buf's tile for both) and dh in a 64 x 64
+//     one (96 registers a thread, 56 FLOPs per byte); one block of
+//     288 threads per SM (up to 224 registers a thread), on a persistent
+//     grid: each block walks its tiles, and the producer fills the ring
+//     for the next tile while the consumers store this one;
+//   * no atomics and no K split: every call gives the same bits.
+//   fp32 (3xTF32) keeps the mma.sync main loop above at 64-row tiles (it
+//   serves only small gradient checks); its redesign is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,6 +91,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "tma.cuh"
 
 namespace {
 
@@ -627,7 +665,454 @@ int run_dtype(int dtype, const void* buf, const void* w1, const void* w3,
   return (int)cudaErrorInvalidValue;
 }
 
-// The backward's four grouped GEMMs (all BM 64, a ring of 4 slots):
+// ---------------------------------------------------------------------------
+// The bf16 backward on wgmma: TMA into an mbarrier ring, one producer warp,
+// two consumer warpgroups of 64 rows each (see the note at the top).
+// ---------------------------------------------------------------------------
+
+constexpr int kWgThreads = 288;  // consumer warpgroups 0 and 1, producer warp 8
+constexpr int kWgBM = 128;       // output rows of a block: 64 per warpgroup
+constexpr int kWgBK = 64;        // K per ring stage: one 128-byte swizzle row
+constexpr int kWgATile = kWgBM * kWgBK * 2;  // bytes of one A tile
+constexpr int kWgBox = 64 * kWgBK * 2;       // bytes of one 64 x 64 box
+
+// The operands of one backward GEMM on wgmma.  A tiles are 128 x 64 (two
+// warpgroups of 64 rows), read K-major (K contiguous in memory) or
+// MN-major (M contiguous: the product takes A transposed).  Accumulator 0
+// is A tile 0 against a B tile of W0 columns (several 64-column boxes
+// side by side, from one or two tensors), kDh's accumulator 1 dout
+// against w2.
+//   kDh, NB 2: [a | b] = buf.[w1 | w3] (W0 128: 64 columns of each, B
+//              MN-major) and dh = dout.w2^T (64 columns, B K-major); A
+//              buf and dout, K-major.  96 accumulator registers a thread.
+//   kDw, NB 1: dw2 = h^T.dout; A and B MN-major, W0 256.
+//   kDw, NB 2: [dw1 | dw3] = buf^T.[da | db]; A and B MN-major, W0 256:
+//              128 columns of each.
+//   kDx, NB 1: dbuf = da.w1^T + db.w3^T: two K segments (A da then db, B
+//              w1 then w3), all K-major, W0 256.
+template <int OP, int NB>
+struct WgOp {
+  static constexpr bool kDual = OP == kDh;  // the second accumulator
+  static constexpr int kW0 = OP == kDh ? 128 : 256;  // accumulator 0's width
+  static constexpr int kW1 = 64;                     // kDh's dh
+  // output columns per tile (of each output)
+  static constexpr int kTileN = OP == kDh ? 64 : NB == 2 ? 128 : 256;
+  static constexpr int kATiles = OP == kDh ? 2 : 1;
+  static constexpr bool kAMN = OP == kDw;
+  static constexpr bool kBMN = OP != kDx;  // accumulator 0's B
+  static constexpr int kStages = 4;
+  static constexpr int kB0 = kW0 * kWgBK * 2;
+  static constexpr int kStage =
+      kATiles * kWgATile + kB0 + (kDual ? kW1 * kWgBK * 2 : 0);
+  static constexpr size_t kSmem = 1024 + (size_t)kStages * kStage +
+                                  2 * kStages * sizeof(uint64_t);
+};
+
+struct WgArgs {
+  CUtensorMap ta[2];  // A operands (kDx: one per K segment)
+  CUtensorMap tb[3];  // B operands (kDx: one per K segment)
+  bf16* dst[3];       // (E, M, N) outputs; kDh: da, db, h
+  int M, K, N, E, m_tiles, n_tiles;
+};
+
+// A wgmma shared-memory descriptor of a 128-byte-swizzled tile: start
+// address, leading and stride byte offsets (16-byte units), swizzle mode 1.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// d (64 x 64, fp32) += A (64 x 16) . B (16 x 64), bf16 from shared memory;
+// TA / TB = 1 reads that operand MN-major.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// d (64 x 128, fp32) += A (64 x 16) . B (16 x 128), as wgmma_n64.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// d (64 x 256, fp32) += A (64 x 16) . B (16 x 256), as wgmma_n64.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103,"
+      " %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119,"
+      " %120, %121, %122, %123, %124, %125, %126, %127},"
+      " %128, %129, p, 1, 1, %131, %132;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+template <int BN, int TA, int TB>
+__device__ __forceinline__ void wgmma(float (&d)[BN / 2], uint64_t da,
+                                      uint64_t db) {
+  if constexpr (BN == 64)
+    wgmma_n64<TA, TB>(d, da, db);
+  else if constexpr (BN == 128)
+    wgmma_n128<TA, TB>(d, da, db);
+  else
+    wgmma_n256<TA, TB>(d, da, db);
+}
+
+// Keeps the compiler from moving an accumulator across the asynchronous
+// products that write it.
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// One backward GEMM over all experts, on a persistent grid: block b takes
+// the 128 x BN output tiles b, b + gridDim.x, ... of the (M tile fastest,
+// then N tile, then expert) order, so the blocks at work at one time share
+// weight tiles through the L2 cache.  Warp 8 (lane 0) fills the ring,
+// running on into the next tile while the consumers finish this one: per
+// stage it waits for the stage's "empty" barrier, arms its "full" barrier
+// with the stage's bytes and issues the TMA boxes.  Warpgroups 0 and 1
+// wait on "full", issue the stage's wgmmas (4 K steps of 16) for their 64
+// rows, keep one stage of products in flight, and release the stage
+// before it on "empty" (one arrival per consumer warp).  Stage and parity
+// run on over the block's tiles.
+template <int OP, int NB>
+__global__ void __launch_bounds__(kWgThreads, 1)
+wg_kernel(const __grid_constant__ WgArgs p) {
+  using W = WgOp<OP, NB>;
+  constexpr int S = W::kStages, BN = W::kTileN, W0 = W::kW0;
+  extern __shared__ unsigned char wg_smem[];
+  const uint32_t raw = smem_addr(wg_smem);
+  const uint32_t ring = (raw + 1023u) & ~1023u;  // swizzle atoms: 1 KB
+  const uint32_t full0 = ring + S * W::kStage;
+  const uint32_t empty0 = full0 + S * 8;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int k_seg = (p.K + kWgBK - 1) / kWgBK;
+  const int nk = OP == kDx ? 2 * k_seg : k_seg;
+  const int mn_tiles = p.m_tiles * p.n_tiles;
+  const int tiles = mn_tiles * p.E;
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      tma::mbar_init(full0 + 8 * s, 1);
+      tma::mbar_init(empty0 + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // producer
+    if (lane != 0) return;
+    int it = 0;  // ring slot uses so far
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int e = tile / mn_tiles, mn = tile % mn_tiles;
+      const int m0 = (mn % p.m_tiles) * kWgBM, n0 = (mn / p.m_tiles) * BN;
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % S;
+        if (it >= S) tma::mbar_wait(empty0 + 8 * s, ((it / S) + 1) & 1);
+        const uint32_t full = full0 + 8 * s;
+        tma::mbar_expect_tx(full, W::kStage);
+        const int seg = (OP == kDx && kt >= k_seg) ? 1 : 0;
+        const int k0 = (kt - seg * k_seg) * kWgBK;
+        const uint32_t sa = ring + s * W::kStage;
+        const uint32_t sb = sa + W::kATiles * kWgATile;
+#pragma unroll
+        for (int a = 0; a < W::kATiles; ++a) {
+          const CUtensorMap* map = &p.ta[OP == kDx ? seg : a];
+          if constexpr (W::kAMN) {
+            tma::load_3d(sa + a * kWgATile, map, full, m0, k0, e);
+            tma::load_3d(sa + a * kWgATile + kWgBox, map, full, m0 + 64, k0,
+                         e);
+          } else {
+            tma::load_3d(sa + a * kWgATile, map, full, k0, m0, e);
+          }
+        }
+        if constexpr (W::kBMN) {
+          // W0 / 64 boxes side by side; kDh and dw1 | dw3 take the first
+          // half from tb[0] and the second from tb[1]
+          constexpr int boxes = W0 / 64;
+          constexpr int per = (OP == kDw && NB == 1) ? boxes : boxes / 2;
+#pragma unroll
+          for (int j = 0; j < boxes; ++j)
+            tma::load_3d(sb + j * kWgBox, &p.tb[j / per], full,
+                         n0 + 64 * (j % per), k0, e);
+        } else {
+          tma::load_3d(sb, &p.tb[seg], full, k0, n0, e);
+        }
+        if constexpr (W::kDual)
+          tma::load_3d(sb + W::kB0, &p.tb[2], full, k0, n0, e);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows m0 + 64 wg .. of each tile
+  const int wg = warp >> 2;
+  const int g = lane >> 2, t = lane & 3;
+  const int M = p.M, N = p.N;
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int e = tile / mn_tiles, mn = tile % mn_tiles;
+    const int m0 = (mn % p.m_tiles) * kWgBM, n0 = (mn / p.m_tiles) * BN;
+    float acc[W0 / 2], acc1[W::kDual ? W::kW1 / 2 : 1];
+#pragma unroll
+    for (int r = 0; r < W0 / 2; ++r) acc[r] = 0.0f;
+#pragma unroll
+    for (int r = 0; r < (W::kDual ? W::kW1 / 2 : 1); ++r) acc1[r] = 0.0f;
+
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int s = it % S;
+      tma::mbar_wait(full0 + 8 * s, (it / S) & 1);
+      __syncwarp();
+      const uint32_t sa = ring + s * W::kStage;
+      const uint32_t sb = sa + W::kATiles * kWgATile;
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < kWgBK / 16; ++ks) {
+        // this warpgroup's 64 rows of A: the second half of a K-major tile
+        // (64 rows of 128 bytes) or the second box of an MN-major one
+        const uint32_t a = sa + wg * kWgBox;
+        const uint64_t da = W::kAMN ? wg_desc(a + ks * 2048, kWgBox, 1024)
+                                    : wg_desc(a + ks * 32, 16, 1024);
+        const uint64_t db = W::kBMN ? wg_desc(sb + ks * 2048, kWgBox, 1024)
+                                    : wg_desc(sb + ks * 32, 16, 1024);
+        wgmma<W0, W::kAMN ? 1 : 0, W::kBMN ? 1 : 0>(acc, da, db);
+        if constexpr (W::kDual)  // dh += dout . w2^T, both K-major
+          wgmma<W::kW1, 0, 0>(acc1, wg_desc(a + kWgATile + ks * 32, 16, 1024),
+                              wg_desc(sb + W::kB0 + ks * 32, 16, 1024));
+      }
+      wg_commit();
+      wg_wait<1>();  // the previous stage's products are done: release it
+      if (kt > 0 && lane == 0) tma::mbar_arrive(empty0 + 8 * ((it - 1) % S));
+    }
+    wg_wait<0>();
+    if (lane == 0) tma::mbar_arrive(empty0 + 8 * ((it - 1) % S));
+    fence_acc(acc);
+    fence_acc(acc1);
+
+    // Epilogue: in warp w of the warpgroup, lane (g, t) holds rows 16 w + g
+    // and + 8, columns 8 j + 2 t and + 1, of each accumulator.
+    const int row0 = m0 + wg * 64 + (warp & 3) * 16 + g;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + half * 8;
+      if (row >= M) continue;
+      const size_t orow = ((size_t)e * M + row) * N;
+      if constexpr (OP == kDh) {  // a: columns 0..63, b: 64..127; dh
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = n0 + j * 8 + 2 * t;
+          if (col >= N) continue;
+          const int r = 4 * j + 2 * half, rb = r + 32;
+          float da0, db0, h0, da1, db1, h1;
+          swiglu_bwd(acc1[r], acc[r], acc[rb], da0, db0, h0);
+          swiglu_bwd(acc1[r + 1], acc[r + 1], acc[rb + 1], da1, db1, h1);
+          store2(p.dst[0] + orow + col, da0, da1);
+          store2(p.dst[1] + orow + col, db0, db1);
+          store2(p.dst[2] + orow + col, h0, h1);
+        }
+      } else {  // dw1 | dw3: columns 0..127 of each; else one output
+#pragma unroll
+        for (int j = 0; j < W0 / 8; ++j) {
+          const int out = j / (BN / 8);
+          const int col = n0 + (j % (BN / 8)) * 8 + 2 * t;
+          if (col >= N) continue;
+          const int r = 4 * j + 2 * half;
+          store2(p.dst[out] + orow + col, acc[r], acc[r + 1]);
+        }
+      }
+    }
+  }
+}
+
+// A bf16 (E, rows, inner) array as a 3-D tensor map whose box is 64 inner
+// elements (128 bytes, the swizzle span) by box_rows rows of one expert.
+bool make_map(CUtensorMap* map, const void* ptr, int inner, int rows, int E,
+              int box_rows) {
+  return tma::make_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, inner,
+                      rows, E, 64, box_rows, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// The SMs of the current device: the persistent grid's size.
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 0;
+  }
+  return n;
+}
+
+template <int OP, int NB>
+int launch_wg(WgArgs& p, int E, cudaStream_t stream) {
+  using W = WgOp<OP, NB>;
+  auto kern = wg_kernel<OP, NB>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)W::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  p.E = E;
+  p.m_tiles = (p.M + kWgBM - 1) / kWgBM;
+  p.n_tiles = (p.N + W::kTileN - 1) / W::kTileN;
+  const long tiles = (long)p.m_tiles * p.n_tiles * E;
+  kern<<<(unsigned)(tiles < sms ? tiles : sms), kWgThreads, W::kSmem,
+         stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// The four bf16 GEMMs in order on wgmma.  Tensor maps: A boxes 64 x 128
+// (K-major) or 64 x 64 (MN-major, two per tile), B boxes 64 x 256 (dbuf's
+// K-major w1, w3), 64 x 64 (kDh's K-major w2) or 64 x 64 (MN-major).
+int run_bwd_wg(const void* buf, const void* w1, const void* w3,
+               const void* w2, const void* dout, void* da, void* db, void* h,
+               void* dbuf, void* dw1, void* dw3, void* dw2, int E, int C,
+               int d, int f, cudaStream_t s) {
+  const int bad = (int)cudaErrorInvalidValue;
+  auto m = [](void* x) { return static_cast<bf16*>(x); };
+  WgArgs p{};
+  // 1. a, b, dh -> da, db, h: M = C, K = d, N = f
+  if (!make_map(&p.ta[0], buf, d, C, E, kWgBM) ||
+      !make_map(&p.ta[1], dout, d, C, E, kWgBM) ||
+      !make_map(&p.tb[0], w1, f, d, E, 64) ||
+      !make_map(&p.tb[1], w3, f, d, E, 64) ||
+      !make_map(&p.tb[2], w2, d, f, E, 64))
+    return bad;
+  p.dst[0] = m(da), p.dst[1] = m(db), p.dst[2] = m(h);
+  p.M = C, p.K = d, p.N = f;
+  int err = launch_wg<kDh, 2>(p, E, s);
+  if (err != 0) return err;
+  // 2. dw2 = h^T . dout: M = f, K = C, N = d
+  p = WgArgs{};
+  if (!make_map(&p.ta[0], h, f, C, E, 64) ||
+      !make_map(&p.tb[0], dout, d, C, E, 64))
+    return bad;
+  p.dst[0] = m(dw2);
+  p.M = f, p.K = C, p.N = d;
+  if ((err = launch_wg<kDw, 1>(p, E, s)) != 0) return err;
+  // 3. dw1, dw3 = buf^T . da, buf^T . db: M = d, K = C, N = f
+  p = WgArgs{};
+  if (!make_map(&p.ta[0], buf, d, C, E, 64) ||
+      !make_map(&p.tb[0], da, f, C, E, 64) ||
+      !make_map(&p.tb[1], db, f, C, E, 64))
+    return bad;
+  p.dst[0] = m(dw1), p.dst[1] = m(dw3);
+  p.M = d, p.K = C, p.N = f;
+  if ((err = launch_wg<kDw, 2>(p, E, s)) != 0) return err;
+  // 4. dbuf = da . w1^T + db . w3^T: M = C, K = f per segment, N = d
+  p = WgArgs{};
+  if (!make_map(&p.ta[0], da, f, C, E, kWgBM) ||
+      !make_map(&p.ta[1], db, f, C, E, kWgBM) ||
+      !make_map(&p.tb[0], w1, f, d, E, 256) ||
+      !make_map(&p.tb[1], w3, f, d, E, 256))
+    return bad;
+  p.dst[0] = m(dbuf);
+  p.M = C, p.K = f, p.N = d;
+  return launch_wg<kDx, 1>(p, E, s);
+}
+
+// The fp32 backward's four grouped GEMMs on the mma.sync main loop (all BM
+// 64, a ring of 4 slots):
 //   1. a, b = buf . w1, buf . w3 and dh = dout . w2^T in fp32, then
 //      da, db, h                          M = C, K = d, N = f   (kDh)
 //   2. dw2 = h^T . dout                    M = f, K = C, N = d   (kDw)
@@ -711,8 +1196,9 @@ extern "C" int moe_gmm_launch(const void* buf, const void* w1, const void* w3,
 // (E, C, f) that the caller allocates.  a = buf . w1 and b = buf . w3 are
 // recomputed here, in the same fp32 accumulators as dh (so h is the
 // forward's h), rather than kept by the forward.  Four launches on
-// `stream`, no atomics and no K split: every call gives the same bits.
-// Returns cudaGetLastError() after the launches.
+// `stream` (bf16 on wgmma, fp32 on mma.sync), no atomics and no K split:
+// every call gives the same bits.  Returns cudaGetLastError() after the
+// launches, or cudaErrorInvalidValue if a tensor map cannot be made.
 extern "C" int moe_gmm_bwd_launch(const void* buf, const void* w1,
                                   const void* w3, const void* w2,
                                   const void* dout, void* da, void* db,
@@ -728,8 +1214,8 @@ extern "C" int moe_gmm_bwd_launch(const void* buf, const void* w1,
     if (!aligned16(q)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return run_bwd<bf16>(buf, w1, w3, w2, dout, da, db, h, dbuf, dw1, dw3,
-                         dw2, E, C, d, f, s);
+    return run_bwd_wg(buf, w1, w3, w2, dout, da, db, h, dbuf, dw1, dw3, dw2,
+                      E, C, d, f, s);
   return run_bwd<float>(buf, w1, w3, w2, dout, da, db, h, dbuf, dw1, dw3,
                         dw2, E, C, d, f, s);
 }

@@ -7,8 +7,9 @@ the machine with the card, by
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o <repo>/build/repro_torch_kernels/<name>-<hash>.so <name>.cu
 
-The library name carries a hash of the source, so an edited kernel is
-rebuilt and never confused with a stale one.  Only sources in this
+The library name carries a hash of the source and of the shared headers
+(``csrc/*.cuh``, e.g. ``tma.cuh``), so an edited kernel is rebuilt and
+never confused with a stale one.  Only sources in this
 checkout are compiled; nothing is fetched.  :func:`build_all` starts one
 ``nvcc`` per source at once (a cold start builds every kernel in the time
 of the slowest).  Pointer and stream arguments are ``c_void_p`` and every
@@ -78,9 +79,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    digest = hashlib.sha1()
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _start(name: str):

@@ -16,7 +16,8 @@ whose backward launches ``moe_gmm_bwd_launch``: four grouped GEMMs under
 :func:`backward_plan` (``a = buf·w1``, ``b = buf·w3`` and ``dh =
 dout·w2ᵀ`` in one kernel's fp32 accumulators, with the SwiGLU backward in
 its epilogue; ``dw2 = hᵀ·dout``; ``dw1, dw3 = bufᵀ·(da, db)``; ``dbuf =
-da·w1ᵀ + db·w3ᵀ``).  a and b are recomputed rather than saved: the
+da·w1ᵀ + db·w3ᵀ``); bf16 runs them on ``wgmma`` with TMA, 128-row tiles,
+fp32 on the forward's ``mma.sync`` loop with 64-row tiles.  a and b are recomputed rather than saved: the
 forward keeps only its inputs, and the backward's scratch is da, db and h,
 3 × (E, C, f) in buf's dtype (granite at C 1280 in bf16: 126 MB per layer,
 freed when the call returns).  ``bwd_launches`` counts backward calls.
@@ -127,36 +128,94 @@ def _check_shapes(buf, w1, w3, w2) -> tuple:
     return E, C, d, f
 
 
-#: the backward's tile (``kBwdBM``, ``kBwdStages`` in the source): every
-#: one of its four kernels runs 64-row tiles on a ring of 4 slots
-BWD_BLOCK_M, BWD_STAGES = 64, 4
+#: the backward's output rows per tile: bf16 runs on ``wgmma`` with 128-row
+#: tiles (two consumer warpgroups of 64 rows, ``kWgBM`` in the source);
+#: fp32 (3xTF32) keeps ``mma.sync`` and 64-row tiles (``kBwdBM``)
+BWD_BLOCK_M = {torch.bfloat16: 128, torch.float32: 64}
+#: ring stages of the four backward GEMMs in launch order (``WgOp::kStages``
+#: for bf16, ``kBwdStages`` for fp32)
+BWD_STAGES = {torch.bfloat16: (4, 4, 4, 4), torch.float32: (4, 4, 4, 4)}
+#: K per ring stage: one 128-byte swizzle row of bf16 (``kWgBK``); 64 bytes
+#: of fp32 (the forward's ``BLOCK_K``)
+BWD_BLOCK_K = {torch.bfloat16: 64, torch.float32: 16}
 
 
 class BackwardGemm(NamedTuple):
-    """One kernel of the backward: ``M × N`` outputs over ``K``, ``NB``
-    weight operands side by side, grid ``(M tiles × N tiles, E)``."""
+    """One kernel of the backward: ``M × N`` outputs over ``K``, ``nb``
+    weight operands side by side, ``tiles`` output tiles of ``block_m ×
+    block_n`` (M tiles × N tiles × E) over a ring of ``stages`` K steps of
+    ``block_k`` in ``smem`` bytes of dynamic shared memory.  ``grid``: bf16
+    runs a persistent grid of ``(min(tiles, SMs), 1)`` blocks, each
+    walking its tiles; fp32 one block per tile, ``(M tiles × N tiles,
+    E)``."""
 
     name: str
     M: int
     K: int
     N: int
     nb: int
+    block_m: int
+    block_n: int
+    block_k: int
+    stages: int
+    smem: int
+    tiles: int
     grid: tuple
 
 
+def _bwd_smem(kind: str, nb: int, bm: int, bn: int, bk: int, stages: int,
+              dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one backward kernel, as the source sizes
+    it.  bf16 (``WgOp::kSmem``): 1 KB of alignment slack, the ring (A
+    tiles ``bm × bk``, two of them for kDh; the B tile of accumulator 0,
+    128 (kDh) or 256 columns by ``bk``, and kDh's 64 × ``bk`` of w2), two
+    mbarriers per stage.  fp32 (``smem_bytes`` of the ``mma.sync`` loop's
+    ``Slot``): padded A and B tiles per stage."""
+    if dtype == torch.bfloat16:
+        dh = kind == "dh"
+        stage = ((2 if dh else 1) * bm * bk + (128 if dh else 256) * bk
+                 + (64 * bk if dh else 0)) * 2
+        return 1024 + stages * stage + 2 * stages * 8
+    epc, cols = 4, WEIGHT_COLS
+    sa = bm + 8 if kind == "dw" else bk + epc
+    a1 = bk * sa if kind == "dw" else bm * sa
+    sb = bk + epc if kind == "dx" else cols + 8
+    b1 = cols * sb if kind == "dx" else bk * sb
+    a, b = (2 * a1, b1 + (cols // 2) * (bk + epc)) if kind == "dh" \
+        else (a1, b1)
+    return stages * (a + b) * 4
+
+
 @functools.lru_cache(maxsize=None)
-def backward_plan(E: int, C: int, d: int, f: int) -> tuple:
-    """The four grouped GEMMs of one backward call, in launch order (the
-    launch plan of the forward, :func:`launch_plan`, is separate)."""
-    def gemm(name, M, K, N, nb):
-        bn = WEIGHT_COLS // nb
-        return BackwardGemm(name, M, K, N, nb,
-                            (_cdiv(M, BWD_BLOCK_M) * _cdiv(N, bn), E))
-    return (gemm("a, b, dh = buf·w1, buf·w3, dout·w2ᵀ → da, db, h",
+def backward_plan(E: int, C: int, d: int, f: int,
+                  dtype: torch.dtype = torch.bfloat16,
+                  n_sms: int = 132) -> tuple:
+    """The four grouped GEMMs of one backward call, in launch order, with
+    their tiles for ``dtype`` on a card of ``n_sms`` SMs (the launch plan
+    of the forward, :func:`launch_plan`, is separate).  bf16 tiles are 256
+    output columns wide where one product fills the 64 × 256 accumulator
+    (dw2, dbuf), 128 of each of dw1 and dw3 side by side, and 64 for kDh
+    (64 columns each of a and b in one 64 × 128 accumulator, and of dh in
+    a 64 × 64 one); fp32 tiles are 128 / nb wide."""
+    bm, bk = BWD_BLOCK_M[dtype], BWD_BLOCK_K[dtype]
+
+    def gemm(i, kind, name, M, K, N, nb):
+        if dtype == torch.bfloat16:
+            bn = 64 if kind == "dh" else 128 if nb == 2 else 256
+        else:
+            bn = WEIGHT_COLS // nb
+        stages = BWD_STAGES[dtype][i]
+        mn = _cdiv(M, bm) * _cdiv(N, bn)
+        grid = (min(mn * E, n_sms), 1) if dtype == torch.bfloat16 \
+            else (mn, E)
+        return BackwardGemm(name, M, K, N, nb, bm, bn, bk, stages,
+                            _bwd_smem(kind, nb, bm, bn, bk, stages, dtype),
+                            mn * E, grid)
+    return (gemm(0, "dh", "a, b, dh = buf·w1, buf·w3, dout·w2ᵀ → da, db, h",
                  C, d, f, 2),
-            gemm("dw2 = hᵀ·dout", f, C, d, 1),
-            gemm("dw1, dw3 = bufᵀ·da, bufᵀ·db", d, C, f, 2),
-            gemm("dbuf = da·w1ᵀ + db·w3ᵀ", C, 2 * f, d, 1))
+            gemm(1, "dw", "dw2 = hᵀ·dout", f, C, d, 1),
+            gemm(2, "dw", "dw1, dw3 = bufᵀ·da, bufᵀ·db", d, C, f, 2),
+            gemm(3, "dx", "dbuf = da·w1ᵀ + db·w3ᵀ", C, 2 * f, d, 1))
 
 
 def _forward(buf, w1, w3, w2) -> torch.Tensor:

@@ -8,8 +8,9 @@ last state is returned, so the model can chain its L-chunks.  CPU
 tensors run the plain version (:func:`~.ref.ssm_scan_ref`, which autograd
 differentiates); CUDA tensors launch the kernel or raise.  On CUDA
 tensors in grad mode the call goes through :class:`SsmScanFn`, whose
-backward launches the backward kernel (the states recomputed inside the
-launch, ``dC`` summed over channels without atomics); the gradient of
+backward launches the backward kernel (the states recomputed and kept on
+chip inside the launch, under :func:`bwd_plan`, ``dC`` summed over
+channels without atomics); the gradient of
 ``h_last`` flows into the previous chunk, so chained chunks differentiate
 end to end.  ``launches`` counts forward launches, ``bwd_launches``
 backward ones.
@@ -17,7 +18,7 @@ backward ones.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -29,6 +30,46 @@ launches = 0
 bwd_launches = 0
 
 STATE_SIZES = (4, 8, 16)
+
+#: the backward's geometry (``kBwdSeg``, ``kBwdCluster``, ``kBwdRows`` in
+#: the source): steps of a chunk kept on chip at once, blocks per
+#: thread-block cluster (one dC partial each), steps per TMA box
+BWD_SEGMENT, BWD_CLUSTER, BWD_ROWS = 256, 8, 32
+
+
+class BwdPlan(NamedTuple):
+    """The backward launch at one shape: ``grid`` blocks of ``threads``
+    (one warp: ``channels_per_block`` channels of N state lanes), in
+    clusters of ``cluster`` along x; ``segments`` of ``segment`` steps
+    (one unless L > ``segment``); ``smem`` bytes of dynamic shared memory
+    (dA and h of one segment in whole boxes of ``BWD_ROWS`` steps,
+    128-byte rows, and one load barrier per box);
+    ``part_shape``, the per-cluster dC partials."""
+
+    threads: int
+    channels_per_block: int
+    grid: tuple
+    cluster: int
+    segment: int
+    segments: int
+    smem: int
+    part_shape: tuple
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def bwd_plan(B: int, L: int, Di: int, N: int) -> BwdPlan:
+    """The geometry of ``ssm_scan_bwd_launch`` (``bwd_blocks`` and
+    ``launch_bwd`` in the source compute the same)."""
+    cpb = 32 // N
+    blocks = _cdiv(_cdiv(Di, cpb), BWD_CLUSTER) * BWD_CLUSTER
+    rows = _cdiv(min(L, BWD_SEGMENT), BWD_ROWS) * BWD_ROWS
+    smem = 2 * rows * 32 * 4 + 8 * (rows // BWD_ROWS)
+    return BwdPlan(32, cpb, (blocks, B), BWD_CLUSTER, BWD_SEGMENT,
+                   _cdiv(L, BWD_SEGMENT), smem,
+                   (blocks // BWD_CLUSTER, B, L, N))
 
 
 def _check(dA, dBx, C, h0) -> tuple:
@@ -88,11 +129,10 @@ def ssm_scan_bwd(dA, dBx, C, h0, dy, dh_last=None) -> tuple:
     d_dA, d_dBx = torch.empty_like(dA), torch.empty_like(dBx)
     dC = torch.empty_like(C)
     dh0 = None if h0 is None else torch.empty_like(h0)
-    # per-block partial sums of dC, summed in a fixed order by the second
-    # kernel (no atomics)
-    blocks = -(-Di // (128 // (N // 4)))
-    part = torch.empty((blocks, B, L, N), dtype=torch.float32,
-                       device=dA.device)
+    # per-cluster partial sums of dC, summed in a fixed order by the
+    # second kernel (no atomics)
+    part = torch.empty(bwd_plan(B, L, Di, N).part_shape,
+                       dtype=torch.float32, device=dA.device)
     stream = torch.cuda.current_stream(dA.device).cuda_stream
     rc = _build.entry("ssm_scan_bwd")(
         dA.data_ptr(), dBx.data_ptr(), C.data_ptr(), _ptr(h0), dy.data_ptr(),

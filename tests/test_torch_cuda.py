@@ -280,6 +280,8 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, B, S, T, H, KV, dh,
     (4, 128, 64, 128), (3, 13, 96, 96), (5, 37, 192, 320), (2, 1, 64, 64),
     (3, 70, 72, 40), (2, 33, 136, 104),
     (32, 8, 1024, 512), (32, 80, 1024, 512), (32, 1280, 1024, 512),
+    # C off the 128-row tiles, d and f off the 64-element TMA box
+    (2, 200, 200, 136), (3, 130, 1032, 520),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_moe_gmm_bwd_kernel_matches_plain(cuda, E, C, d, f, dtype):
@@ -287,7 +289,9 @@ def test_moe_gmm_bwd_kernel_matches_plain(cuda, E, C, d, f, dtype):
     through the plain version (fp32), within 5 × 2e-5 (fp32) / 2e-2
     (bf16, ``flash_attention``'s limit) of the largest reference gradient
     of each; bitwise the same on a second call.  The ragged shapes cut C,
-    d and f inside a tile (f 40 and 104 are not multiples of 32)."""
+    d and f inside a tile (f 40 and 104 are not multiples of 32; C 200 and
+    130 not of bf16's 128 rows; d 200 and 1032, f 136 and 520 not of the
+    64-element TMA box, which zero-fills past them)."""
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(12)
     args = (_t(rng.normal(size=(E, C, d)) * 0.5, dt, cuda),
@@ -519,6 +523,10 @@ SSM_BWD_CASES = [
     (2, 77, 200, 16, True, True), (1, 100, 40, 4, False, True),
     (3, 64, 33, 8, True, False), (1, 256, 3200, 16, False, False),
     (1, 256, 3200, 16, True, True), (1, 256, 8192, 16, True, True),
+    # L past one 256-step segment (checkpointed segments, the last one
+    # ragged); Di off the channels per block (8 for N 4, 2 for N 16)
+    (1, 600, 72, 16, True, True), (2, 300, 37, 4, True, False),
+    (1, 256, 3201, 16, False, True),
 ]
 
 

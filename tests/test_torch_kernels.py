@@ -213,3 +213,99 @@ def test_plain_versions_stay_differentiable_on_cpu():
     for t in (buf, w1, w3, w2, q, kv):
         assert t.grad is not None and bool(torch.isfinite(t.grad).all())
         assert float(t.grad.abs().sum()) > 0
+
+
+# The backward's shapes: granite-moe-1b-a400m's training microbatch (C 1280)
+# and its serving capacities, mixtral-8x7b's experts, and the shapes of
+# tests/test_torch_cuda.py::test_moe_gmm_bwd_kernel_matches_plain (C, d and
+# f cut inside a tile and off the 64-element TMA box)
+BWD_PLAN_SHAPES = [
+    (32, 1280, 1024, 512), (32, 8, 1024, 512), (32, 80, 1024, 512),
+    (8, 160, 4096, 14336), (8, 8, 4096, 14336),
+    (4, 128, 64, 128), (3, 13, 96, 96), (5, 37, 192, 320), (2, 1, 64, 64),
+    (3, 70, 72, 40), (2, 33, 136, 104), (2, 200, 200, 136),
+    (3, 130, 1032, 520),
+]
+
+
+def test_moe_gmm_backward_plan():
+    """The four backward GEMMs at every shape above, bf16 and fp32: in
+    launch order (kDh over C × f with K d, dw2 over f × d with K C, dw1 |
+    dw3 over d × f with K C, dbuf over C × d with K 2f), the tiles cover M
+    and N, bf16 runs 128-row tiles and fp32 keeps 64, each ring fits the
+    232,448 bytes a block may hold, and each grid is what the launches
+    compute: bf16 a persistent grid of min(tiles, SMs) blocks over the
+    (M tiles × N tiles × E) tiles, fp32 (M tiles × N tiles, E).  Pinned:
+    granite's C 1280."""
+    smem_limit = 232448
+    for E, C, d, f in BWD_PLAN_SHAPES:
+        for dt in (torch.bfloat16, torch.float32):
+            plan = MG.backward_plan(E, C, d, f, dt)
+            assert [(g.M, g.K, g.N, g.nb) for g in plan] == [
+                (C, d, f, 2), (f, C, d, 1), (d, C, f, 2), (C, 2 * f, d, 1)]
+            for i, g in enumerate(plan):
+                assert g.block_m == (128 if dt == torch.bfloat16 else 64)
+                assert g.block_m == MG.BWD_BLOCK_M[dt]
+                assert g.stages == MG.BWD_STAGES[dt][i] >= 4
+                m_tiles, n_tiles = -(-g.M // g.block_m), -(-g.N // g.block_n)
+                assert g.block_m * m_tiles >= g.M > g.block_m * (m_tiles - 1)
+                assert g.block_n * n_tiles >= g.N > g.block_n * (n_tiles - 1)
+                assert g.tiles == m_tiles * n_tiles * E
+                # bf16: a persistent grid, one block per SM at most
+                assert g.grid == ((min(g.tiles, 132), 1)
+                                  if dt == torch.bfloat16
+                                  else (m_tiles * n_tiles, E))
+                assert g.smem <= smem_limit
+                if dt == torch.bfloat16:
+                    # wgmma: 64-row halves, widths a multiple of 8 up to
+                    # 256 (dw1 | dw3: 128 of each), K steps of one
+                    # 128-byte swizzle row
+                    assert g.block_n * (g.nb if i == 2 else 1) in (64, 256)
+                    assert g.block_k == 64
+                else:
+                    assert g.block_n * g.nb == MG.WEIGHT_COLS
+    bf = MG.backward_plan(32, 1280, 1024, 512, torch.bfloat16)
+    assert [g.tiles for g in bf] == [80 * 32, 16 * 32, 32 * 32, 40 * 32]
+    assert [g.grid for g in bf] == [(132, 1)] * 4
+    assert [g.block_n for g in bf] == [64, 256, 128, 256]
+    assert [g.stages for g in bf] == [4, 4, 4, 4]
+    assert bf[0].smem == 1024 + 4 * (2 * 128 * 64 + 3 * 64 * 64) * 2 + 64
+    fp = MG.backward_plan(32, 1280, 1024, 512, torch.float32)
+    assert [g.grid for g in fp] == [(160, 32), (64, 32), (128, 32),
+                                    (160, 32)]
+
+
+@pytest.mark.parametrize("B,L,Di,N,grid,part", [
+    # hymba-1.5b's chunk and falcon-mamba-7b's, as training launches them
+    (1, 256, 3200, 16, (1600, 1), (200, 1, 256, 16)),
+    (1, 256, 8192, 16, (4096, 1), (512, 1, 256, 16)),
+    # hymba's two 128-token chunks of the 2-layer gradient check (B 2)
+    (2, 128, 3200, 16, (1600, 2), (200, 2, 128, 16)),
+    # ragged Di against the channels per block; L past one segment
+    (3, 64, 33, 8, (16, 3), (2, 3, 64, 8)),
+    (1, 600, 72, 16, (40, 1), (5, 1, 600, 16)),
+])
+def test_ssm_scan_bwd_plan(B, L, Di, N, grid, part):
+    """The backward scan's geometry: one warp per block with one state
+    lane per thread (32 / N channels), the channel groups padded to whole
+    clusters of 8 (at B 1 and hymba's Di 3200: 1600 blocks, at least two
+    per SM over 132 SMs), dA and h of min(L, 256) steps in shared memory
+    within the 232,448 bytes a block may hold (three blocks per SM at 256
+    steps), and the dC scratch one (B, L, N) partial per cluster."""
+    from repro_torch.kernels.ssm_scan import ssm_scan as SS
+
+    plan = SS.bwd_plan(B, L, Di, N)
+    assert plan.threads == 32 and plan.channels_per_block == 32 // N
+    assert plan.grid == grid and plan.part_shape == part
+    assert plan.grid[0] % plan.cluster == 0
+    assert plan.channels_per_block * plan.grid[0] >= Di
+    assert plan.channels_per_block * (plan.grid[0] - plan.cluster) < Di
+    assert plan.segments == -(-L // plan.segment)
+    rows = -(-min(L, plan.segment) // 32) * 32  # whole 32-step boxes
+    assert plan.smem == 2 * rows * 128 + 8 * (rows // 32)
+    smem_limit = 232448  # the H100's 227 KB a block may hold
+    assert plan.smem <= smem_limit
+    if L >= plan.segment:
+        assert 3 * plan.smem <= smem_limit
+    if (B, Di) == (1, 3200):
+        assert plan.grid[0] >= 2 * 132
