@@ -1,13 +1,15 @@
 """Where a training step of the port spends its time, on the card.
 
-    PYTHONPATH=src python -m benchmarks.torch_train_profile [--arch granite-moe-1b-a400m] [--warmup 1] [--steps 2] [--seed 0]
+    PYTHONPATH=src python -m benchmarks.torch_train_profile [--arch granite-moe-1b-a400m | hymba-1.5b | whisper-medium] [--warmup 1] [--steps 2] [--seed 0]
 
 Runs a training step of ``chip_smoke.py`` at full width, bf16, random
 weights from ``--seed``, policy ``afe``, sched policy ``dlbc``, AdamW:
 granite-moe-1b-a400m (the default) at seq 1024 and global batch 8 in 2
 microbatches, or ``--arch hymba-1.5b`` at seq 1024 and global batch 8 in
 8 microbatches of one sequence (its fp32 scan tensors leave no room for
-two); lets
+two), or ``--arch whisper-medium`` at seq 448 (Whisper's decoder context,
+with seeded 1500-frame encoder inputs) and global batch 8 in 2
+microbatches; lets
 ``--warmup`` steps pass, then records ``--steps`` steps under
 ``torch.profiler`` (CPU and CUDA activity) and prints one JSON line: the
 wall time of the window, the device busy share, host operator calls and
@@ -33,7 +35,10 @@ PORT_KERNELS = ("attn_tc_kernel", "attn_kernel", "attn_bwd_dq",
                 "attn_bwd_dkv", "gmm_kernel", "wg_kernel", "split_sum_kernel",
                 "ssm_scan")
 #: microbatches of the global batch of 8 sequences, per architecture
-MICROBATCHES = {"granite-moe-1b-a400m": 2, "hymba-1.5b": 8}
+MICROBATCHES = {"granite-moe-1b-a400m": 2, "hymba-1.5b": 8,
+                "whisper-medium": 2}
+#: sequence length per architecture where it is not 1024
+SEQ_LEN = {"whisper-medium": 448}
 
 
 def summary(prof, wall_ms: float, steps: int) -> dict:
@@ -83,7 +88,8 @@ def main(argv=None) -> int:
 
     cfg = get_config(args.arch)
     step, params, opt, batch, shape = train_setup(
-        torch, cfg, args.seed, microbatches=MICROBATCHES[args.arch])
+        torch, cfg, args.seed, seq_len=SEQ_LEN.get(args.arch, 1024),
+        microbatches=MICROBATCHES[args.arch])
     for _ in range(args.warmup):
         params, opt, _ = step(params, opt, batch)
     torch.cuda.synchronize()

@@ -10,9 +10,13 @@ granite-moe-1b-a400m (24 layers, d_model 1024, 32 experts top-8),
 falcon-mamba-7b (64 layers, d_model 4096, d_inner 8192, state 16),
 hymba-1.5b (32 layers, d_model 1600, 25 heads / 5 kv heads, window 1024,
 d_inner 3200), phi3-mini-3.8b (32 layers, d_model 3072, 32 heads of dim
-96) and mixtral-8x7b (d_model 4096, 32 heads / 8 kv heads, 8 experts
+96), mixtral-8x7b (d_model 4096, 32 heads / 8 kv heads, 8 experts
 top-2 of width 14336, window 4096; 2 of its 32 layers, since its 93 GB
-of bf16 weights exceed the card):
+of bf16 weights exceed the card), whisper-medium (24 encoder and 24
+decoder layers, d_model 1024, 16 heads of dim 64, 1500 frames) and
+llama-3.2-vision-90b (d_model 8192, 64 heads / 8 kv heads of dim 128,
+1601 patches; 10 of its 100 layers, two groups of four self layers and
+one cross layer, since its ~180 GB of bf16 weights exceed the card):
 
 1. ``card``: the card's name and power limit from ``nvidia-smi``.
 2. ``moe_gmm``: the kernel pair against its plain PyTorch version at the
@@ -104,15 +108,35 @@ of bf16 weights exceed the card):
     layers, bf16), seq 1024, global batch 8 in 8 microbatches, four AdamW
     steps, with exactly 32 × 8 launches of ``flash_attention`` and its
     backward and 32 × 4 × 8 of ``ssm_scan`` and its backward per step.
+15. whisper-medium: ``flash_attention`` and its backward at its shapes
+    (the encoder's non-causal S = T = 1500 at B 1 and at a training
+    microbatch's B 4, cross attention of 448 decoder positions against
+    1500 frames, bf16 and fp32, causal decoder self attention at S 448),
+    and the vlm's cross attention (S 512 against T 1601, G 8, dh 128),
+    each held against the plain version with the kernel, plain, SDPA and
+    bound times; ``fp32_forward`` at full width and depth:
+    ``forward(last_only)`` over 64 tokens and seeded frames against the
+    tokens fed one by one through ``decode_step``, ``cross_kv`` filled
+    from the encoder output, with exactly 24 non-causal encoder, 24
+    causal decoder and 24 cross ``flash_attention`` launches;
+    ``train_grads`` at 2 + 2 layers (B 2, S 64, 1500 frames) against the
+    CPU; ``train``: four bf16 AdamW steps at seq 448, global batch 8 in 2
+    microbatches, 72 launches of ``flash_attention`` and of its backward
+    per microbatch.
+16. llama-3.2-vision-90b (10 layers): ``fp32_forward`` over 64 tokens
+    and seeded patch embeddings against decode (8 causal self and 2
+    cross launches), and ``wide_bf16``, a timed 512-token forward with
+    10 ``flash_attention`` launches.
 
-Each main-path run (each forward of phases 4, 7, 9 and 10; the serve
-CLI and the batcher run of phase 5 for ``moe_gmm``; the four steps of
-phases 13 and 14 for the backward kernels) zeroes the launch counters
+Each main-path run (each forward of phases 4, 7, 9, 10, 15 and 16; the
+serve CLI and the batcher run of phase 5 for ``moe_gmm``; the four steps
+of phases 13, 14 and 15 for the backward kernels) zeroes the launch counters
 just before it and reads them just after; the ``kernels`` line takes ``moe_gmm``'s
 count from the serve CLI, ``ssm_scan``'s from the fp32 falcon-mamba-7b
 forward, ``flash_attention``'s from the bf16 phi3-mini forward,
-``flash_attention_bwd``'s and ``moe_gmm_bwd``'s from phase 13 and
-``ssm_scan_bwd``'s from phase 14.  Each
+``flash_attention_bwd``'s and ``moe_gmm_bwd``'s from phase 13 (and a
+second ``flash_attention_bwd`` entry, at whisper's cross-attention shape,
+from phase 15) and ``ssm_scan_bwd``'s from phase 14.  Each
 phase's wall time is printed after it.  Launches made to compare a kernel with its plain
 version are not counted.  Every phase prints JSON lines and raises on
 failure.  The second-to-last line is the ``kernels`` JSON and the last
@@ -375,49 +399,66 @@ def attention_flops(S: int, T: int, B: int, H: int, dh: int, causal: bool,
     return 4.0 * dh * B * H * pairs
 
 
+def attn_case(c, S: int, dtype: str, window: int = 0, *, B: int = 1,
+              T: int = 0, causal: bool = True, what: str = "") -> dict:
+    """One attention row of :func:`phase_flash` / :func:`phase_flash_bwd`:
+    ``c``'s heads, q (B, S), k/v (B, T or S); ``what`` names the path."""
+    return dict(c=c, B=B, S=S, T=T or S, causal=causal, dtype=dtype,
+                window=window, what=what)
+
+
+def sdpa_mask(torch, S: int, T: int, causal: bool, window: int):
+    """SDPA's ``(attn_mask, is_causal)`` for the kernel's masks (query and
+    key positions both from 0, as SDPA's ``is_causal`` aligns them)."""
+    if not window:
+        return None, causal
+    qp = torch.arange(S, device="cuda")[:, None]
+    kp = torch.arange(T, device="cuda")[None, :]
+    return (qp - kp < window) & ((qp >= kp) if causal else True), False
+
+
 def phase_flash(torch, cases) -> list:
-    """``cases``: (config, S, dtype, window) at B = 1, causal."""
+    """``cases``: :func:`attn_case` rows."""
     from repro_torch.kernels.flash_attention import flash_attention as FA
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
-    B = 1
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     rows = []
-    for c, S, dtype, window in cases:
+    for a in cases:
+        c, B, S, T, causal, dtype, window = (a[k] for k in (
+            "c", "B", "S", "T", "causal", "dtype", "window"))
         H, KV, dh = c.n_heads, c.n_kv_heads, c.head_dim
         dt = getattr(torch, dtype)
+        kw = dict(causal=causal, window=window)
         q = torch.randn(B, S, H, dh, generator=gen, device="cuda").to(dt)
-        k = torch.randn(B, S, KV, dh, generator=gen, device="cuda").to(dt)
-        v = torch.randn(B, S, KV, dh, generator=gen, device="cuda").to(dt)
+        k = torch.randn(B, T, KV, dh, generator=gen, device="cuda").to(dt)
+        v = torch.randn(B, T, KV, dh, generator=gen, device="cuda").to(dt)
         tol = 2e-2 if dtype == "bfloat16" else 2e-5
-        out = FA.flash_attention(q, k, v, causal=True, window=window)
+        out = FA.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
-        err = max_err(torch, out, attention_ref(
-            q, k, v, causal=True, window=window), tol, tol,
-            f"flash_attention window={window} {dtype}")
+        err = max_err(torch, out, attention_ref(q, k, v, **kw), tol, tol,
+                      f"flash_attention {c.name} S={S} T={T} causal={causal} "
+                      f"window={window} {dtype}")
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        mask = None
-        if window:
-            pos = torch.arange(S, device="cuda")
-            mask = (pos[:, None] >= pos[None, :]) \
-                & (pos[:, None] - pos[None, :] < window)
+        mask, is_causal = sdpa_mask(torch, S, T, causal, window)
 
         def library():
             return torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                qt, kt, vt, attn_mask=mask, is_causal=is_causal,
                 enable_gqa=True)
-        nbytes = (2 * B * S * H * dh + 2 * B * S * KV * dh) \
+        nbytes = (2 * B * S * H * dh + 2 * B * T * KV * dh) \
             * q.element_size()
         b_ms, b_by = bound(nbytes, attention_flops(
-            S, S, B, H, dh, True, window), dtype)
-        row = {"phase": "flash_attention", "arch": c.name, "B": B, "S": S,
-               "H": H, "KV": KV, "dh": dh, "causal": True, "window": window,
+            S, T, B, H, dh, causal, window), dtype)
+        row = {"phase": "flash_attention", "arch": c.name, "path": a["what"],
+               "B": B, "S": S, "T": T, "H": H, "KV": KV, "dh": dh,
+               "causal": causal, "window": window,
                "dtype": dtype, "max_abs_err": err, "atol": tol,
                "rtol": tol,
                "kernel_ms": time_ms(torch, lambda: FA.flash_attention(
-                   q, k, v, causal=True, window=window), 20),
+                   q, k, v, **kw), 20),
                "plain_ms": time_ms(torch, lambda: attention_ref(
-                   q, k, v, causal=True, window=window), 5),
+                   q, k, v, **kw), 5),
                "library_ms": time_ms(torch, library, 20),
                "bound_ms": b_ms, "bound_by": b_by}
         emit(row)
@@ -425,16 +466,16 @@ def phase_flash(torch, cases) -> list:
     return rows
 
 
-def lse_ref(torch, q, k, window: int):
-    """Each causal row's log-sum-exp of the scaled scores, (B, H, S) fp32,
-    from q (B, S, H, dh) and k (B, T, KV, dh) in fp32."""
+def lse_ref(torch, q, k, causal: bool, window: int):
+    """Each row's log-sum-exp of the scaled, masked scores, (B, H, S)
+    fp32, from q (B, S, H, dh) and k (B, T, KV, dh) in fp32."""
     B, S, H, dh = q.shape
     T, KV = k.shape[1], k.shape[2]
     s = torch.einsum("bskgd,btkd->bkgst", q.float().reshape(
         B, S, KV, H // KV, dh), k.float()) * dh ** -0.5
     pos = torch.arange(S, device=q.device)[:, None]
     key = torch.arange(T, device=q.device)[None, :]
-    mask = pos >= key
+    mask = pos >= key if causal else torch.ones_like(pos >= key)
     if window:
         mask &= pos - key < window
     s = s.masked_fill(~mask, float("-inf"))
@@ -445,41 +486,40 @@ def phase_flash_bwd(torch, cases) -> list:
     """The backward kernels of ``flash_attention`` (dq, dk, dv), and the
     forward kernel that runs in grad mode (its output and the row
     log-sum-exp it then writes), against the plain version; ``cases``:
-    (config, B, S, dtype, window), causal."""
+    :func:`attn_case` rows."""
     from repro_torch.kernels.flash_attention import flash_attention as FA
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     rows = []
-    for c, B, S, dtype, window in cases:
+    for a in cases:
+        c, B, S, T, causal, dtype, window = (a[k] for k in (
+            "c", "B", "S", "T", "causal", "dtype", "window"))
         H, KV, dh = c.n_heads, c.n_kv_heads, c.head_dim
         dt = getattr(torch, dtype)
         q = torch.randn(B, S, H, dh, generator=gen, device="cuda").to(dt)
-        k, v = (torch.randn(B, S, KV, dh, generator=gen, device="cuda")
+        k, v = (torch.randn(B, T, KV, dh, generator=gen, device="cuda")
                 .to(dt) for _ in range(2))
         dout = torch.randn(B, S, H, dh, generator=gen, device="cuda").to(dt)
         tol = 2e-2 if dtype == "bfloat16" else 2e-5
-        kw = dict(causal=True, window=window)
-        what = f"flash_attention_bwd {c.name} S={S} window={window} {dtype}"
+        kw = dict(causal=causal, window=window)
+        what = (f"flash_attention_bwd {c.name} S={S} T={T} causal={causal} "
+                f"window={window} {dtype}")
         err, rel, fwd_err, ref_out, ref_in = grads_against_plain(
             torch, lambda *a: FA.flash_attention(*a, **kw),
             lambda *a: attention_ref(*a, **kw), (q, k, v), dout,
             ("dq", "dk", "dv"), tol, tol, what)
-        out, lse = FA._forward(q, k, v, True, window, with_lse=True)
-        lse_err = max_err(torch, lse, lse_ref(torch, q, k, window), tol, tol,
-                          f"{what} lse")
+        out, lse = FA._forward(q, k, v, causal, window, with_lse=True)
+        lse_err = max_err(torch, lse, lse_ref(torch, q, k, causal, window),
+                          tol, tol, f"{what} lse")
         lib_in = [x.detach().transpose(1, 2).requires_grad_(True)
                   for x in (q, k, v)]
-        mask = None
-        if window:
-            pos = torch.arange(S, device="cuda")
-            mask = (pos[:, None] >= pos[None, :]) \
-                & (pos[:, None] - pos[None, :] < window)
+        mask, is_causal = sdpa_mask(torch, S, T, causal, window)
 
         def library(backward: bool):
             o = F.scaled_dot_product_attention(
-                *lib_in, attn_mask=mask, is_causal=mask is None,
+                *lib_in, attn_mask=mask, is_causal=is_causal,
                 enable_gqa=True)
             if backward:
                 torch.autograd.grad(o, lib_in, dout.transpose(1, 2))
@@ -489,15 +529,16 @@ def phase_flash_bwd(torch, cases) -> list:
                             - time_ms(torch, lambda: library(False), 10)
                             for _ in range(5))
         lib_ms = lib_rounds[2]
-        pairs = attention_flops(S, S, 1, 1, 1, True, window) / 4
+        pairs = attention_flops(S, T, 1, 1, 1, causal, window) / 4
         # q, k, v, out, dout and lse read once; dq, dk, dv written once.
         # FLOPs: S = q k^T recomputed, dP = dO v^T, dv, dq and dk: 10·dh
         # per visible (query, key) pair per head
-        nbytes = (4 * B * S * H * dh + 4 * B * S * KV * dh) \
+        nbytes = (4 * B * S * H * dh + 4 * B * T * KV * dh) \
             * q.element_size() + 4 * B * H * S
         b_ms, b_by = bound(nbytes, 10.0 * dh * B * H * pairs, dtype)
-        row = {"phase": "flash_attention_bwd", "arch": c.name, "B": B,
-               "S": S, "H": H, "KV": KV, "dh": dh, "causal": True,
+        row = {"phase": "flash_attention_bwd", "arch": c.name,
+               "path": a["what"], "B": B, "S": S, "T": T, "H": H, "KV": KV,
+               "dh": dh, "causal": causal,
                "window": window, "dtype": dtype, "max_abs_err": err,
                "max_err_over_max_ref": max(rel.values()),
                "err_over_max_ref": rel, "tol_over_max_ref": tol,
@@ -526,10 +567,16 @@ def phase_fp32_forward(torch, cfg, prompt_len: int, via: str) -> dict:
     (one ``ssm_scan`` launch per mamba layer at ssm_chunk 256) against
     the same prompt through ``prefill_step`` + one ``decode_step``
     (``via="prefill"``) or fed token by token through ``decode_step``
-    (``via="decode"``: the recurrent families and sliding-window caches,
-    which prefill refuses).  MoE capacity is ample (factor E / top_k), so
-    no pair can drop: drops depend on how many tokens share a launch.
-    Each kernel must launch exactly once per layer that has it."""
+    (``via="decode"``: the recurrent, encdec and vlm families and
+    sliding-window caches, which prefill refuses).  encdec and vlm read
+    seeded frame or patch embeddings, and their decode a ``cross_kv``
+    filled by :func:`fill_cross_kv`.  MoE capacity is ample (factor E /
+    top_k), so no pair can drop: drops depend on how many tokens share a
+    launch.  Each kernel must launch exactly as :func:`expected_launches`
+    says, and every ``flash_attention`` launch of the forward is sorted by
+    its masks and lengths: non-causal at S = T (the encoder), causal
+    (self attention), non-causal at S != T (cross attention), each count
+    exact (whisper-medium 24, 24, 24; the vlm cut 0, 8, 2)."""
     from repro_torch.device import parity_mode
     from repro_torch.kernels.flash_attention import flash_attention as FA
     from repro_torch.kernels.moe_dispatch import moe_gmm as MG
@@ -545,16 +592,32 @@ def phase_fp32_forward(torch, cfg, prompt_len: int, via: str) -> dict:
     params = TM.init_params(c32, gen, device="cuda")
     prompt = torch.randint(0, c32.vocab, (1, prompt_len), generator=gen,
                            device="cuda")
-    MG.launches = FA.launches = SS.launches = 0
-    fwd = TM.forward(params, c32, {"tokens": prompt}, ssm_chunk=256,
-                     last_only=True)[:, 0]
-    torch.cuda.synchronize()
-    launches = {"flash_attention": FA.launches, "moe_gmm": MG.launches,
-                "ssm_scan": SS.launches}
+    batch = {"tokens": prompt, **ctx_input(torch, c32, 1, gen)}
+    real, kinds = FA._forward, {"encoder": 0, "self": 0, "cross": 0}
+
+    def spy(q, k, v, causal, window, with_lse):
+        kinds["self" if causal else "encoder" if q.shape[1] == k.shape[1]
+              else "cross"] += 1
+        return real(q, k, v, causal, window, with_lse)
+
+    FA._forward = spy
+    try:
+        MG.launches = FA.launches = SS.launches = 0
+        fwd = TM.forward(params, c32, batch, ssm_chunk=256,
+                         last_only=True)[:, 0]
+        torch.cuda.synchronize()
+        launches = {"flash_attention": FA.launches, "moe_gmm": MG.launches,
+                    "ssm_scan": SS.launches}
+    finally:
+        FA._forward = real
     L = cfg.n_layers
-    expect = {"flash_attention": 0 if cfg.family == "ssm" else L,
-              "moe_gmm": L if cfg.n_experts else 0,
-              "ssm_scan": L if cfg.family in ("ssm", "hybrid") else 0}
+    expect = {k: n for k, n in expected_launches(c32, prompt_len, 1).items()
+              if k in launches}
+    n_cross = {"encdec": L, "vlm": L // max(1, cfg.cross_every)}.get(
+        cfg.family, 0)
+    expect_kinds = {"encoder": cfg.enc_layers, "cross": n_cross,
+                    "self": expect["flash_attention"] - cfg.enc_layers
+                    - n_cross}
     t0 = time.perf_counter()
     if via == "prefill":
         cache = TM.init_cache(c32, 1, 2 * prompt_len, device="cuda")
@@ -567,6 +630,8 @@ def phase_fp32_forward(torch, cfg, prompt_len: int, via: str) -> dict:
                 [prompt_len - 1], device="cuda")})
     else:
         cache = TM.init_cache(c32, 1, prompt_len, device="cuda")
+        if "cross_kv" in cache:
+            fill_cross_kv(torch, params, c32, batch, cache)
         for t in range(prompt_len):
             dec, _ = TM.decode_step(params, c32, cache, {
                 "tokens": prompt[:, t:t + 1],
@@ -577,14 +642,16 @@ def phase_fp32_forward(torch, cfg, prompt_len: int, via: str) -> dict:
     a_dec = int(dec[0, :V].argmax())
     top2 = torch.topk(fwd[0, :V], 2).values
     row = {"phase": "fp32_forward", "arch": cfg.name, "dtype": "float32",
-           "layers": L, "d_model": cfg.d_model, "params": sum(
+           "layers": L, "enc_layers": cfg.enc_layers,
+           "d_model": cfg.d_model, "params": sum(
                t.numel() for t in tree_leaves(params)),
            "prompt": prompt_len, "via": via, "argmax_forward": a_fwd,
            "argmax_decode": a_dec,
            "logits_max_abs_diff": float((fwd - dec).abs().max()),
            "top2_margin": float(top2[0] - top2[1]),
            "decode_s": time.perf_counter() - t0, "launches": launches,
-           "expected_launches": expect}
+           "expected_launches": expect, "flash_launches_by_kind": kinds,
+           "expected_by_kind": expect_kinds}
     emit(row)
     finite = bool(torch.isfinite(fwd).all()) and \
         bool(torch.isfinite(dec).all())
@@ -594,8 +661,9 @@ def phase_fp32_forward(torch, cfg, prompt_len: int, via: str) -> dict:
         raise AssertionError(f"{cfg.name}: non-finite logits")
     if a_fwd != a_dec:
         raise AssertionError(f"{cfg.name}: forward argmax != {via} argmax")
-    if launches != expect:
-        raise AssertionError(f"{cfg.name}: launches {launches} != {expect}")
+    if launches != expect or kinds != expect_kinds:
+        raise AssertionError(f"{cfg.name}: launches {launches}, {kinds} != "
+                             f"{expect}, {expect_kinds}")
     return row
 
 
@@ -950,8 +1018,9 @@ def phase_ssm_bf16(torch, cfg, card: str) -> dict:
 
 def phase_wide_bf16(torch, cfg, card: str, prompt_len: int) -> dict:
     """bf16: one warm-up and one timed ``forward(last_only)`` over a
-    prompt, host clock around synchronised work; exactly one
-    ``flash_attention`` (and, for MoE, one ``moe_gmm``) launch per layer."""
+    prompt (vlm: and seeded patch embeddings), host clock around
+    synchronised work; exactly one ``flash_attention`` (and, for MoE, one
+    ``moe_gmm``) launch per layer."""
     from repro_torch.kernels.flash_attention import flash_attention as FA
     from repro_torch.kernels.moe_dispatch import moe_gmm as MG
     from repro_torch.models import model as TM
@@ -961,15 +1030,17 @@ def phase_wide_bf16(torch, cfg, card: str, prompt_len: int) -> dict:
     params = TM.init_params(cfg, gen, device="cuda")
     toks = torch.randint(0, cfg.vocab, (1, prompt_len), generator=gen,
                          device="cuda")
-    TM.forward(params, cfg, {"tokens": toks}, last_only=True)  # warm-up
+    batch = {"tokens": toks, **ctx_input(torch, cfg, 1, gen)}
+    TM.forward(params, cfg, batch, last_only=True)  # warm-up
     torch.cuda.synchronize()
     MG.launches = FA.launches = 0
     t0 = time.perf_counter()
-    fwd = TM.forward(params, cfg, {"tokens": toks}, last_only=True)
+    fwd = TM.forward(params, cfg, batch, last_only=True)
     torch.cuda.synchronize()
     fwd_ms = (time.perf_counter() - t0) * 1e3
     launches = {"flash_attention": FA.launches, "moe_gmm": MG.launches}
-    expect = {"flash_attention": cfg.n_layers,
+    expect = {"flash_attention": expected_launches(
+        cfg, prompt_len, 1)["flash_attention"],
               "moe_gmm": cfg.n_layers if cfg.n_experts else 0}
     finite = bool(torch.isfinite(fwd).all())
     row = {"phase": "wide_bf16", "arch": cfg.name, "dtype": cfg.dtype,
@@ -1003,8 +1074,9 @@ def train_setup(torch, cfg, seed: int = SEED, seq_len: int = 1024,
     with random weights from ``seed``, ``init_opt_state`` and
     ``build_train_step`` (``seq_len`` tokens, ``global_batch`` sequences
     in ``microbatches``, policy ``afe``, sched policy ``dlbc``, AdamW at lr
-    1e-4 with warmup 1) and one fixed batch.  Returns (step, params, opt,
-    batch, shape)."""
+    1e-4 with warmup 1) and one fixed batch (with seeded frame or patch
+    embeddings for encdec and vlm).  Returns (step, params, opt, batch,
+    shape)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.models import model as TM
     from repro_torch.train.optimizer import AdamWConfig, init_opt_state
@@ -1022,7 +1094,8 @@ def train_setup(torch, cfg, seed: int = SEED, seq_len: int = 1024,
                                         shape.seq_len + 1),
                          generator=gen, device="cuda")
     batch = {"tokens": toks[:, :-1].contiguous(),
-             "labels": toks[:, 1:].contiguous()}
+             "labels": toks[:, 1:].contiguous(),
+             **ctx_input(torch, cfg, shape.global_batch, gen)}
     return step, params, opt, batch, shape
 
 
@@ -1050,10 +1123,13 @@ def zero_counters() -> None:
 def expected_launches(cfg, seq_len: int, microbatches: int,
                       ssm_chunk: int = 256) -> dict:
     """Each kernel's launches in one forward + backward per microbatch:
-    one per attention layer, one per MoE layer, one per mamba layer and
-    ``ssm_chunk`` tokens; each backward kernel as often as its forward."""
+    one per attention layer (encdec: each encoder layer, and each decoder
+    layer twice, self and cross; vlm: each self and each cross layer),
+    one per MoE layer, one per mamba layer and ``ssm_chunk`` tokens; each
+    backward kernel as often as its forward."""
     L = cfg.n_layers
-    per = {"flash_attention": 0 if cfg.family == "ssm" else L,
+    attn = {"ssm": 0, "encdec": cfg.enc_layers + 2 * L}.get(cfg.family, L)
+    per = {"flash_attention": attn,
            "moe_gmm": L if cfg.n_experts else 0,
            "ssm_scan": L * max(1, seq_len // ssm_chunk)
            if cfg.family in ("ssm", "hybrid") else 0}
@@ -1065,8 +1141,10 @@ def expected_launches(cfg, seq_len: int, microbatches: int,
 
 def phase_train_grads(torch, cfg, S: int = 256, ssm_chunk: int = 256
                       ) -> dict:
-    """``cfg`` at full width, 2 layers, fp32 (TF32 off), B 2 x ``S``
-    tokens: one ``loss_fn`` backward on the card (the kernels and their
+    """``cfg`` at full width, 2 layers (encdec: 2 + 2), fp32 (TF32 off),
+    B 2 x ``S`` tokens (encdec: and 2 x 1500 seeded frames; their
+    gradients cross from the decoder's cross attention into the
+    encoder): one ``loss_fn`` backward on the card (the kernels and their
     backward kernels; mamba layers in ``S / ssm_chunk`` chained chunks)
     against the same weights' gradients on the CPU (the plain versions).
     For MoE the expert ids and keep masks of both runs are compared first
@@ -1079,11 +1157,14 @@ def phase_train_grads(torch, cfg, S: int = 256, ssm_chunk: int = 256
     from repro_torch.tree import tree_leaves, tree_map
 
     parity_mode(deterministic=False)
-    c = dataclasses.replace(cfg, dtype="float32", n_layers=2)
+    c = dataclasses.replace(cfg, dtype="float32", n_layers=2, **(
+        {"enc_layers": 2} if cfg.family == "encdec" else {}))
     p_cpu = TM.init_params(c, torch.Generator().manual_seed(SEED),
                            device="cpu")
     toks = torch.randint(0, c.vocab, (2, S + 1),
                          generator=torch.Generator().manual_seed(SEED))
+    ctx = ctx_input(torch, c, 2, torch.Generator().manual_seed(SEED + 1),
+                    device="cpu")
     routes, grads, launches = {"cpu": [], "cuda": []}, {}, {}
     real = M.dispatch_combine
 
@@ -1097,7 +1178,8 @@ def phase_train_grads(torch, cfg, S: int = 256, ssm_chunk: int = 256
             p = tree_map(lambda t: t.detach().to(dev).clone()
                          .requires_grad_(True), p_cpu)
             batch = {"tokens": toks[:, :-1].to(dev),
-                     "labels": toks[:, 1:].to(dev)}
+                     "labels": toks[:, 1:].to(dev),
+                     **{k: v.to(dev) for k, v in ctx.items()}}
             zero_counters()
             TM.loss_fn(p, c, batch, ssm_chunk=ssm_chunk).backward()
             if dev == "cuda":
@@ -1117,7 +1199,8 @@ def phase_train_grads(torch, cfg, S: int = 256, ssm_chunk: int = 256
                     / max(float(gc.abs().max()), 1e-30))
     expect = expected_launches(c, S, 1, ssm_chunk)
     row = {"phase": "train_grads", "arch": cfg.name, "dtype": "float32",
-           "layers": 2, "d_model": c.d_model, "B": 2, "S": S,
+           "layers": 2, "enc_layers": c.enc_layers, "d_model": c.d_model,
+           "B": 2, "S": S,
            "ssm_chunk": ssm_chunk,
            "params": sum(t.numel() for t in tree_leaves(p_cpu)),
            "leaves": len(grads["cpu"]), "routed_layers": len(routes["cuda"]),
@@ -1249,6 +1332,54 @@ def phase_train_cli(torch, arch: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phases 15-16: the encoder-decoder and vision-language families
+# ---------------------------------------------------------------------------
+
+
+def ctx_input(torch, cfg, B: int, gen, device="cuda") -> dict:
+    """What the stubbed frontends give the encdec and vlm families: seeded
+    frame (``enc_frames``, B x enc_seq) or patch (``vis_embed``, B x
+    vis_seq) embeddings of width d_model in ``cfg``'s dtype; {} for the
+    other families."""
+    from repro_torch.device import torch_dtype
+
+    if cfg.family not in ("encdec", "vlm"):
+        return {}
+    key, n = ("enc_frames", cfg.enc_seq) if cfg.family == "encdec" \
+        else ("vis_embed", cfg.vis_seq)
+    return {key: torch.randn(B, n, cfg.d_model, generator=gen,
+                             device=device).to(torch_dtype(cfg.dtype))}
+
+
+def fill_cross_kv(torch, params, cfg, batch: dict, cache: dict) -> None:
+    """Write ``cache["cross_kv"]`` for ``batch``: the cross layers' K/V over
+    the encoder output (encdec: the non-causal encoder stack, then
+    ``enc_norm``) or the patch embeddings (vlm), through each cross
+    layer's own ``wk`` / ``wv``.  Harness code: the package, like the
+    reference, leaves filling ``cross_kv`` to its caller."""
+    from repro_torch.models import blocks as TB
+    from repro_torch.models import layers as TL
+    from repro_torch.models import model as TM
+
+    with torch.no_grad():
+        if cfg.family == "encdec":
+            ctx = batch["enc_frames"].to(params["embed"].dtype)
+            for p in TM._unbind(params["enc_layers"]):
+                ctx = TB.layer_apply(p, cfg, ctx, "enc", causal=False)
+            ctx = TL.norm_apply(params["enc_norm"], ctx, cfg.norm)
+            attn = params["dec_layers"]["cross"]
+        else:
+            ctx = batch["vis_embed"].to(params["embed"].dtype)
+            attn = params["cross_layers"]["attn"]
+        B, T = ctx.shape[:2]
+        for i in range(TM._n_layers(attn)):
+            for name, w in (("k", "wk"), ("v", "wv")):
+                cache["cross_kv"][name][i].copy_(TL.dense_apply(
+                    TM._layer(attn[w], i), ctx).reshape(
+                        B, T, cfg.n_kv_heads, cfg.head_dim))
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1302,13 +1433,14 @@ def main() -> int:
     # of phase 7; phi3-mini (dh 96, G = 1) and mixtral (window 4096): the
     # forwards of phases 9 and 10
     hw = hymba.sliding_window
+    A = attn_case
     flash_rows = timed(phase_flash, torch, (
-        (cfg, 256, "float32", 0), (cfg, 2048, "bfloat16", 0),
-        (cfg, 2048, "bfloat16", 256), (cfg, 2048, "float32", 0),
-        (cfg, 2048, "float32", 256), (hymba, 256, "float32", hw),
-        (hymba, 2048, "bfloat16", hw), (phi3, 256, "float32", 0),
-        (phi3, 2048, "bfloat16", 0),
-        (mixtral, 512, "bfloat16", mixtral.sliding_window)))
+        A(cfg, 256, "float32"), A(cfg, 2048, "bfloat16"),
+        A(cfg, 2048, "bfloat16", 256), A(cfg, 2048, "float32"),
+        A(cfg, 2048, "float32", 256), A(hymba, 256, "float32", hw),
+        A(hymba, 2048, "bfloat16", hw), A(phi3, 256, "float32"),
+        A(phi3, 2048, "bfloat16"),
+        A(mixtral, 512, "bfloat16", mixtral.sliding_window)))
     timed(phase_fp32_forward, torch, cfg, 256, "prefill")
     timed(phase_chunked_prefill, torch)
     srv = timed(phase_serve, torch, cfg, smi)
@@ -1330,9 +1462,9 @@ def main() -> int:
     # phi3's head dim 96; full-width gradients against the CPU; AdamW
     # steps at full width; the training CLI with a crash and a resume
     fa_bwd_rows = timed(phase_flash_bwd, torch, (
-        (cfg, 4, 1024, "bfloat16", 0), (cfg, 4, 1024, "float32", 0),
-        (cfg, 4, 1024, "bfloat16", 256), (phi3, 1, 2048, "bfloat16", 0),
-        (hymba, 1, 1024, "bfloat16", hw)))
+        A(cfg, 1024, "bfloat16", B=4), A(cfg, 1024, "float32", B=4),
+        A(cfg, 1024, "bfloat16", 256, B=4), A(phi3, 2048, "bfloat16"),
+        A(hymba, 1024, "bfloat16", hw)))
     moe_bwd_rows = timed(phase_moe_gmm_bwd, torch, cfg, (
         ("bfloat16", (1280, 8)), ("float32", (1280,))))
     ssm_bwd_rows = timed(phase_ssm_scan_bwd, torch)
@@ -1343,6 +1475,46 @@ def main() -> int:
     # full-width bf16 AdamW steps, seq 1024, 8 microbatches of 1 sequence
     timed(phase_train_grads, torch, hymba, 256, 128)
     hymba_train = timed(phase_train, torch, hymba, smi, 4, 1024, 8, 8)
+    # the encoder-decoder and vision-language families (phases 15-16):
+    # flash_attention at their shapes — whisper's encoder (S = T = 1500,
+    # non-causal), its cross attention (448 decoder positions, Whisper's
+    # context, against 1500 frames) and decoder self attention at a
+    # training microbatch of 4, the vlm's cross attention (512 tokens
+    # against 1601 patches, G 8, dh 128); whisper-medium at full width
+    # and depth (fp32 forward vs decode, 2 + 2-layer gradients, four bf16
+    # AdamW steps at seq 448); llama-3.2-vision-90b at full width, 10 of
+    # its 100 layers (two groups of four self layers and a cross layer:
+    # its ~180 GB of bf16 weights exceed the card), fp32 forward vs
+    # decode and a bf16 512-token forward
+    whisper = get_config("whisper-medium")
+    vlm = dataclasses.replace(get_config("llama-3.2-vision-90b"),
+                              n_layers=10)
+    E, V = whisper.enc_seq, vlm.vis_seq
+    timed(phase_flash, torch, (
+        A(whisper, E, "bfloat16", causal=False, what="whisper encoder"),
+        A(whisper, E, "bfloat16", B=4, causal=False,
+          what="whisper encoder, training microbatch"),
+        A(whisper, 448, "bfloat16", B=4, T=E, causal=False,
+          what="whisper cross"),
+        A(whisper, 448, "float32", B=4, T=E, causal=False,
+          what="whisper cross"),
+        A(whisper, 448, "bfloat16", B=4, what="whisper decoder self"),
+        A(vlm, 512, "bfloat16", T=V, causal=False, what="vlm cross")))
+    xattn_bwd_rows = timed(phase_flash_bwd, torch, (
+        A(whisper, 448, "bfloat16", B=4, T=E, causal=False,
+          what="whisper cross, training microbatch"),
+        A(whisper, 448, "float32", B=4, T=E, causal=False,
+          what="whisper cross"),
+        A(whisper, E, "bfloat16", B=4, causal=False,
+          what="whisper encoder, training microbatch"),
+        A(whisper, 448, "bfloat16", B=4,
+          what="whisper decoder self, training microbatch"),
+        A(vlm, 512, "bfloat16", T=V, causal=False, what="vlm cross")))
+    timed(phase_fp32_forward, torch, whisper, 64, "decode")
+    timed(phase_train_grads, torch, whisper, 64)
+    whisper_train = timed(phase_train, torch, whisper, smi, 4, 448, 8, 2)
+    timed(phase_fp32_forward, torch, vlm, 64, "decode")
+    timed(phase_wide_bf16, torch, vlm, smi, 512)
 
     moe_main = next(r for r in moe_rows
                     if r["C"] == 8 and r["dtype"] == "bfloat16")
@@ -1350,6 +1522,7 @@ def main() -> int:
                       if r["arch"] == phi3.name and r["S"] == 2048)
     ssm_main = ssm_rows[0]
     fa_bwd_main, moe_bwd_main = fa_bwd_rows[0], moe_bwd_rows[0]
+    xattn_bwd_main = xattn_bwd_rows[0]
     ssm_bwd_main = ssm_bwd_rows[1]
     kernels = [
         {"name": "moe_gmm", "route": "cuda",
@@ -1392,6 +1565,20 @@ def main() -> int:
          "bound_ms": fa_bwd_main["bound_ms"],
          "bound_by": fa_bwd_main["bound_by"],
          "library_ms": fa_bwd_main["library_ms"]},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:127",
+         "launches": whisper_train["launches"]["flash_attention_bwd"],
+         "shape": "B=4 S=448 T=1500 H=16 KV=16 dh=64 non-causal bf16 "
+                  "(whisper-medium training microbatch, cross attention; 72 "
+                  "launches per microbatch: 24 encoder, 24 decoder self, 24 "
+                  "cross)",
+         "max_abs_err": xattn_bwd_main["max_abs_err"],
+         "ms": xattn_bwd_main["kernel_ms"],
+         "plain_ms": xattn_bwd_main["plain_ms"],
+         "bound_ms": xattn_bwd_main["bound_ms"],
+         "bound_by": xattn_bwd_main["bound_by"],
+         "library_ms": xattn_bwd_main["library_ms"]},
         {"name": "moe_gmm_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_gmm.cu",
          "replaces": "src/repro/kernels/moe_dispatch/moe_gmm.py:62",

@@ -1,7 +1,8 @@
 """Core NN layers: norms, RoPE, linear, MLP, attention and KV-cache writes.
 
-Port of ``repro/models/layers.py`` for the dense and MoE decoder path.
-Params are plain dicts of tensors with the reference's layouts
+Port of ``repro/models/layers.py``: self attention, and cross attention
+for the encoder-decoder and vision-language families.  Params are plain
+dicts of tensors with the reference's layouts
 (``(d_in, d_out)`` weights, ``(B, S, H, dh)`` activations, ``(B, T, KV,
 dh)`` caches).  Differences from the reference:
 
@@ -175,12 +176,15 @@ def attn_init(gen, cfg, dtype) -> dict:
 
 def attn_apply(
     p: dict, cfg, x: torch.Tensor, *,
+    kv_src: Optional[torch.Tensor] = None,
     causal: bool = True,
     positions: Optional[torch.Tensor] = None,
     schedule: str = "masked",
     q_chunk: int = 1024, k_chunk: int = 1024,
 ) -> torch.Tensor:
-    """Whole-sequence self-attention through the flash-attention kernel.
+    """Whole-sequence attention through the flash-attention kernel: self
+    attention, or cross attention to ``kv_src`` (B, T, d), which gives K
+    and V, takes no RoPE and no window and is never causal.
 
     ``schedule``, ``q_chunk`` and ``k_chunk`` are kept for signature
     parity with the reference and ignored: the kernel bounds each query
@@ -188,16 +192,20 @@ def attn_apply(
     window band, which is the reference's "tri"/"window" schedule."""
     B, S, d = x.shape
     H, KV, h = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    src = x if kv_src is None else kv_src
+    T = src.shape[1]
     q = dense_apply(p["wq"], x).reshape(B, S, H, h)
-    k = dense_apply(p["wk"], x).reshape(B, S, KV, h)
-    v = dense_apply(p["wv"], x).reshape(B, S, KV, h)
-    if cfg.rope_theta > 0:
+    k = dense_apply(p["wk"], src).reshape(B, T, KV, h)
+    v = dense_apply(p["wv"], src).reshape(B, T, KV, h)
+    if kv_src is None and cfg.rope_theta > 0:
         pos = positions if positions is not None \
             else torch.arange(S, device=x.device)[None, :]
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
-    out = flash_attention_op(q.contiguous(), k.contiguous(), v.contiguous(),
-                             causal=causal, window=cfg.sliding_window)
+    out = flash_attention_op(
+        q.contiguous(), k.contiguous(), v.contiguous(),
+        causal=causal and kv_src is None,
+        window=cfg.sliding_window if kv_src is None else 0)
     return dense_apply(p["wo"], out.reshape(B, S, H * h))
 
 
@@ -292,3 +300,15 @@ def attn_prefill_apply(p: dict, cfg, x: torch.Tensor, cache: dict,
     out = prefill_attention(q, k_cache, v_cache, ci)
     y = dense_apply(p["wo"], out.reshape(B, C, H * h))
     return y, k_cache, v_cache
+
+
+def cross_decode_apply(p: dict, cfg, x: torch.Tensor,
+                       cross_kv: dict) -> torch.Tensor:
+    """One-token cross attention against precomputed K/V ``cross_kv``
+    {"k", "v"} (B, T, KV, dh): every one of the T entries is attended."""
+    B = x.shape[0]
+    H, h = cfg.n_heads, cfg.head_dim
+    q = dense_apply(p["wq"], x).reshape(B, 1, H, h)
+    T = cross_kv["k"].shape[1]
+    out = decode_attention(q, cross_kv["k"], cross_kv["v"], T)
+    return dense_apply(p["wo"], out.reshape(B, 1, H * h))

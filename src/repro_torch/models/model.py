@@ -1,19 +1,23 @@
-"""Model: init / forward / loss / prefill / decode for the dense, MoE,
-SSM and hybrid families.
+"""Model: init / forward / loss / prefill / decode for every family.
 
 Port of ``repro/models/model.py``.  Parameters are nested dicts of
-tensors in the reference's layout: one stack ``params["layers"]`` whose
-leaves carry a leading ``(L,)`` layer dim, so weights bridged from the
-reference drop straight in.  The layer scan becomes a Python loop over
-that dim; caches are ``cache["layers"]``, holding ``{"k", "v"}`` of shape
-``(L, B, T, KV, dh)`` for attention and ``{"conv", "h"}`` for the mamba
-heads, and :func:`decode_step` / :func:`prefill_step` update them IN
-PLACE (each layer writes through a view of its slice).  The encdec and
-vlm families raise and name their ROADMAP item.
+tensors in the reference's layout, so weights bridged from the reference
+drop straight in: one stack ``params["layers"]`` whose leaves carry a
+leading ``(L,)`` layer dim for the dense, MoE, SSM and hybrid families;
+``enc_layers`` and ``dec_layers`` (and ``enc_norm``) for encdec
+(whisper); ``self_layers`` with a leading ``(g, k-1)`` and
+``cross_layers`` with ``(g,)`` for vlm, g groups of k-1 self layers and
+one cross layer.  The layer scans become Python loops over those dims.
+Caches mirror the stacks (``{"k", "v"}`` of shape ``(L, B, T, KV, dh)``
+for attention, ``{"conv", "h"}`` for the mamba heads, none for the
+encoder or the vlm cross layers) plus ``cross_kv``, the cross layers'
+precomputed K/V, and :func:`decode_step` / :func:`prefill_step` update
+them IN PLACE (each layer writes through a view of its slice).
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Optional, Union
 
 import torch
@@ -34,10 +38,17 @@ def _plan(cfg: ModelConfig):
         return [("layers", "ssm", cfg.n_layers, 0)]
     if cfg.family == "hybrid":
         return [("layers", "hybrid", cfg.n_layers, 0)]
-    if cfg.family in ("encdec", "vlm"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 "
-            f"item 10)")
+    if cfg.family == "encdec":
+        return [("enc_layers", "enc", cfg.enc_layers, 0),
+                ("dec_layers", "dec", cfg.n_layers, 0)]
+    if cfg.family == "vlm":
+        k = cfg.cross_every
+        if cfg.n_layers % k:
+            raise ValueError(f"n_layers {cfg.n_layers} is not a multiple "
+                             f"of cross_every {k}")
+        g = cfg.n_layers // k
+        return [("self_layers", "dense", g, k - 1),  # (g, k-1, ...)
+                ("cross_layers", "cross", g, 0)]
     raise ValueError(cfg.family)
 
 
@@ -60,15 +71,16 @@ def _unbind(tree: dict) -> list:
     return list(torch.unbind(tree))
 
 
-def _stacked_init(make, n: int) -> dict:
-    """Stack ``n`` trees from ``make()`` along a new leading dim, filling
-    preallocated stacks one layer at a time (peak memory: the stack plus
-    one layer, which lets falcon-mamba-7b in fp32 fit on one card)."""
+def _stacked_init(make, lead: tuple) -> dict:
+    """Stack trees from ``make()`` along new leading dims ``lead`` (the
+    layer count, or the vlm's ``(g, k-1)``), filling preallocated stacks
+    one layer at a time (peak memory: the stack plus one layer, which
+    lets falcon-mamba-7b in fp32 fit on one card)."""
     first = make()
 
     def alloc(t):
         return {k: alloc(v) for k, v in t.items()} if isinstance(t, dict) \
-            else t.new_empty((n,) + tuple(t.shape))
+            else t.new_empty(lead + tuple(t.shape))
 
     def fill(dst, src, i):
         for k, v in src.items():
@@ -77,9 +89,9 @@ def _stacked_init(make, n: int) -> dict:
             else:
                 dst[k][i].copy_(v)
     out = alloc(first)
-    fill(out, first, 0)
+    fill(out, first, (0,) * len(lead))
     del first
-    for i in range(1, n):
+    for i in list(itertools.product(*map(range, lead)))[1:]:
         fill(out, make(), i)
     return out
 
@@ -128,9 +140,11 @@ def _init(cfg: ModelConfig, gen) -> dict:
     if not cfg.tie_embeddings:
         out["lm_head"] = L._norm_init(gen, (cfg.d_model, cfg.padded_vocab),
                                       cfg.d_model ** -0.5, dt)
-    for name, kind, n, _ in _plan(cfg):
+    for name, kind, n, inner in _plan(cfg):
         out[name] = _stacked_init(lambda: B.layer_init(gen, cfg, dt, kind),
-                                  n)
+                                  (n, inner) if inner else (n,))
+    if cfg.family == "encdec":
+        out["enc_norm"] = L.norm_init(gen, cfg.d_model, cfg.norm, dt)
     return out
 
 
@@ -154,26 +168,46 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
             schedule: str = "masked", q_chunk: int = 1024,
             k_chunk: int = 1024, ssm_chunk: int = 256, remat: bool = True,
             last_only: bool = False) -> torch.Tensor:
-    """Logits for (B, S) tokens.  On CUDA tensors self-attention runs the
-    flash-attention kernel and every mamba head the selective-scan kernel,
-    one launch per ``ssm_chunk`` tokens (S must be a multiple of it when
-    larger).  ``last_only`` slices to the final position before the
-    lm_head matmul.  Differentiable on both devices: on CUDA tensors that
-    require grad the kernels run under their ``torch.autograd.Function``s,
-    whose backward launches the hand-written backward kernels
-    (``flash_attention``, ``moe_gmm``, ``ssm_scan``).
+    """Logits for (B, S) tokens; encdec also reads ``batch["enc_frames"]``
+    (B, enc_seq, d), run through the non-causal encoder into the
+    decoder's cross attention, and vlm ``batch["vis_embed"]`` (B, vis_seq,
+    d), which every cross layer attends to.  On CUDA tensors self, encoder
+    and cross attention run the flash-attention kernel (a vlm group's k-1
+    self layers are unbound one stack level at a time, so that autograd
+    still stacks each leaf's gradient once) and every mamba head the
+    selective-scan kernel, one launch per ``ssm_chunk`` tokens (S must be
+    a multiple of it when larger).  ``last_only`` slices to the final
+    position before the lm_head matmul.  Differentiable on both devices:
+    on CUDA tensors that require grad the kernels run under their
+    ``torch.autograd.Function``s, whose backward launches the hand-written
+    backward kernels (``flash_attention``, ``moe_gmm``, ``ssm_scan``).
     ``schedule``/``q_chunk``/``k_chunk`` are accepted for signature parity
     and have no effect (the kernels bound their loops themselves).
     ``remat`` is accepted and has no effect either: autograd keeps every
     layer's activations (no rematerialisation; a mamba layer keeps its
     fp32 ``dA`` and ``dBx``), and the card runs report the peak memory
     that costs."""
-    kind = _plan(cfg)[0][1]
     x = params["embed"][batch["tokens"].long()]
-    for p in _unbind(params["layers"]):
-        x = B.layer_apply(p, cfg, x, kind, schedule=schedule,
-                          q_chunk=q_chunk, k_chunk=k_chunk,
-                          ssm_chunk=ssm_chunk)
+    kw = dict(schedule=schedule, q_chunk=q_chunk, k_chunk=k_chunk,
+              ssm_chunk=ssm_chunk)
+    if cfg.family == "encdec":
+        enc = batch["enc_frames"].to(x.dtype)
+        for p in _unbind(params["enc_layers"]):
+            enc = B.layer_apply(p, cfg, enc, "enc", causal=False, **kw)
+        ctx = L.norm_apply(params["enc_norm"], enc, cfg.norm)
+        for p in _unbind(params["dec_layers"]):
+            x = B.layer_apply(p, cfg, x, "dec", ctx=ctx, **kw)
+    elif cfg.family == "vlm":
+        ctx = batch["vis_embed"].to(x.dtype)
+        for gself, gcross in zip(_unbind(params["self_layers"]),
+                                 _unbind(params["cross_layers"])):
+            for p in _unbind(gself):
+                x = B.layer_apply(p, cfg, x, "dense", **kw)
+            x = B.layer_apply(gcross, cfg, x, "cross", ctx=ctx, **kw)
+    else:
+        kind = _plan(cfg)[0][1]
+        for p in _unbind(params["layers"]):
+            x = B.layer_apply(p, cfg, x, kind, **kw)
     if last_only:
         x = x[:, -1:]
     x = L.norm_apply(params["final_norm"], x, cfg.norm)
@@ -200,29 +234,43 @@ def loss_fn(params, cfg, batch, **kw):
 
 def init_cache(cfg: ModelConfig, bsz: int, cache_len: int,
                device: Optional[Union[str, torch.device]] = None) -> dict:
-    """Zero caches on ``device`` (``None`` = the card), each leaf with a
-    leading ``(L,)`` layer dim: KV ``{"k", "v"}`` of shape
-    ``(L, bsz, T, KV, dh)`` for attention (a sliding-window config keeps
-    only the window, a ring buffer) and ``{"conv" (L, bsz, cw-1, Di),
-    "h" (L, bsz, Di, N) fp32}`` for the mamba heads."""
+    """Zero caches on ``device`` (``None`` = the card), the reference's
+    tree: per stack, leaves with its leading layer dims — KV ``{"k",
+    "v"}`` of shape ``(L, bsz, T, KV, dh)`` for self attention (a
+    sliding-window config keeps only the window, a ring buffer; vlm's
+    ``self_layers`` lead with ``(g, k-1)``) and ``{"conv" (L, bsz, cw-1,
+    Di), "h" (L, bsz, Di, N) fp32}`` for the mamba heads; no entry for
+    the encoder stack and ``{}`` for vlm's cross layers.  encdec and vlm
+    add ``cross_kv`` {"k", "v"}, the cross layers' K/V over the encoder
+    output or the vision embeddings, ``(n_layers, bsz, enc_seq, KV, dh)``
+    or ``(g, bsz, vis_seq, KV, dh)``, zero-filled: the caller fills it."""
     dev = resolve_device(device)
     dt = torch_dtype(cfg.dtype)
     out = {}
-    for name, kind, n, _ in _plan(cfg):
+    for name, kind, n, inner in _plan(cfg):
+        if kind == "enc":
+            continue
+        lead = (n, inner) if inner else (n,)
         layer = {}
-        if kind != "ssm":
+        if kind not in ("ssm", "cross"):
             T = min(cache_len, cfg.sliding_window) \
                 if cfg.sliding_window > 0 else cache_len
-            shape = (n, bsz, T, cfg.n_kv_heads, cfg.head_dim)
+            shape = lead + (bsz, T, cfg.n_kv_heads, cfg.head_dim)
             layer["k"] = torch.zeros(shape, dtype=dt, device=dev)
             layer["v"] = torch.zeros(shape, dtype=dt, device=dev)
         if kind in ("ssm", "hybrid"):
             di = cfg.d_inner
-            layer["conv"] = torch.zeros((n, bsz, cfg.conv_width - 1, di),
+            layer["conv"] = torch.zeros(lead + (bsz, cfg.conv_width - 1, di),
                                         dtype=dt, device=dev)
-            layer["h"] = torch.zeros((n, bsz, di, cfg.ssm_state),
+            layer["h"] = torch.zeros(lead + (bsz, di, cfg.ssm_state),
                                      dtype=torch.float32, device=dev)
         out[name] = layer
+    if cfg.family in ("encdec", "vlm"):
+        n, T = (cfg.n_layers, cfg.enc_seq) if cfg.family == "encdec" \
+            else (cfg.n_layers // cfg.cross_every, cfg.vis_seq)
+        shape = (n, bsz, T, cfg.n_kv_heads, cfg.head_dim)
+        out["cross_kv"] = {"k": torch.zeros(shape, dtype=dt, device=dev),
+                           "v": torch.zeros(shape, dtype=dt, device=dev)}
     return out
 
 
@@ -231,14 +279,33 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     """One token for every sequence against the cache.
 
     batch = {"tokens": (B, 1), "cache_index": () or (B,)} — returns
-    (logits (B, padded_vocab), cache), the cache updated IN PLACE."""
-    kind = _plan(cfg)[0][1]
+    (logits (B, padded_vocab), cache), the cache updated IN PLACE.
+    encdec and vlm read the cross layers' K/V from ``cache["cross_kv"]``
+    (decoder layer ``i`` or group ``gi``)."""
+    ci = batch["cache_index"]
     x = params["embed"][batch["tokens"].long()]
-    stack = params["layers"]
-    for i in range(_n_layers(stack)):
-        x, _ = B.layer_decode_apply(_layer(stack, i), cfg, x,
-                                    _layer(cache["layers"], i),
-                                    batch["cache_index"], kind)
+    if cfg.family == "vlm":
+        selfp, selfc = params["self_layers"], cache["self_layers"]
+        for gi in range(_n_layers(params["cross_layers"])):
+            gp, gc = _layer(selfp, gi), _layer(selfc, gi)
+            for j in range(_n_layers(gp)):
+                x, _ = B.layer_decode_apply(_layer(gp, j), cfg, x,
+                                            _layer(gc, j), ci, "dense")
+            x, _ = B.layer_decode_apply(
+                _layer(params["cross_layers"], gi), cfg, x, {}, ci, "cross",
+                ctx_kv=_layer(cache["cross_kv"], gi))
+    elif cfg.family == "encdec":
+        stack = params["dec_layers"]
+        for i in range(_n_layers(stack)):
+            x, _ = B.layer_decode_apply(
+                _layer(stack, i), cfg, x, _layer(cache["dec_layers"], i), ci,
+                "dec", ctx_kv=_layer(cache["cross_kv"], i))
+    else:
+        kind = _plan(cfg)[0][1]
+        stack = params["layers"]
+        for i in range(_n_layers(stack)):
+            x, _ = B.layer_decode_apply(_layer(stack, i), cfg, x,
+                                        _layer(cache["layers"], i), ci, kind)
     x = L.norm_apply(params["final_norm"], x, cfg.norm)
     return (x @ _head(params, cfg))[:, 0], cache
 

@@ -147,11 +147,19 @@ def run_training(cfg: ModelConfig, shape: ShapeConfig,
             # obs phases (cat="train"): data → eval → step → ckpt, one
             # span each per iteration so a trace shows what the wall time
             # of a training step is made of.
-            # (the encdec and vlm inputs come with those families, item 10)
             with obs.trace_span("train", "data"):
                 batch_np = data.batch_at(step)
                 batch = {k: torch.from_numpy(v).to(dev)
                          for k, v in batch_np.items()}
+                # the stubbed audio / vision frontends: zero frame or
+                # patch embeddings, as the reference feeds them
+                if cfg.family in ("encdec", "vlm"):
+                    key, n = ("enc_frames", cfg.enc_seq) \
+                        if cfg.family == "encdec" \
+                        else ("vis_embed", cfg.vis_seq)
+                    batch[key] = torch.zeros(
+                        (shape.global_batch, n, cfg.d_model),
+                        dtype=torch.bfloat16, device=dev)
             # monotonic step timing (straggler EWMA differences these;
             # time.time() can jump under NTP)
             t0 = time.perf_counter()

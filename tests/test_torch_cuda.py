@@ -631,3 +631,95 @@ def test_ssm_families_forward_matches_decode_and_cpu(cuda, arch):
     dec = torch.stack(outs, dim=1)
     torch.testing.assert_close(dec, lg, atol=1e-4, rtol=1e-4)
     assert torch.equal(dec.argmax(-1), lg.argmax(-1))
+
+
+# -- the encoder-decoder and vision-language families -------------------------
+
+# whisper-medium's encoder (S = T = 1500, non-causal) and cross attention
+# (448 decoder positions against 1500 frames, a 28-key tail tile),
+# llama-3.2-vision's cross attention (512 against 1601 patches, G 8 at dh
+# 128, a 1-key tail tile) and a small 1-key tail at G 2
+ENCDEC_ATTN = [
+    (1, 1500, 1500, 16, 16, 64), (2, 448, 1500, 16, 16, 64),
+    (1, 512, 1601, 64, 8, 128), (2, 70, 1601, 4, 2, 64),
+]
+
+
+@pytest.mark.parametrize("B,S,T,H,KV,dh", ENCDEC_ATTN)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_encdec_shapes_match_plain(cuda, B, S, T, H, KV, dh,
+                                                   dtype):
+    """The non-causal forward at the encoder and cross-attention shapes,
+    within 2e-5 (fp32) / 2e-2 (bf16) of the plain version."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(14)
+    q = _t(rng.normal(size=(B, S, H, dh)), dt, cuda)
+    k, v = (_t(rng.normal(size=(B, T, KV, dh)), dt, cuda) for _ in range(2))
+    n0 = FA.launches
+    out = FA.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert FA.launches == n0 + 1
+    torch.testing.assert_close(out.float(), attention_ref(
+        q, k, v, causal=False).float(), atol=_tol(dt), rtol=_tol(dt))
+
+
+@pytest.mark.parametrize("B,S,T,H,KV,dh", ENCDEC_ATTN)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_encdec_shapes_match_plain(cuda, B, S, T, H, KV,
+                                                       dh, dtype):
+    """dq, dk, dv at the encoder and cross-attention shapes (T > S, a
+    ragged key tail) against autograd through the plain version, each
+    within 2e-5 (fp32) / 2e-2 (bf16) of its largest reference value;
+    bitwise the same on a second call."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(15)
+    q = _t(rng.normal(size=(B, S, H, dh)), dt, cuda)
+    k, v = (_t(rng.normal(size=(B, T, KV, dh)), dt, cuda) for _ in range(2))
+    dout = _t(rng.normal(size=(B, S, H, dh)), dt, cuda)
+    n0 = FA.bwd_launches
+    got = _grads(lambda *a: FA.flash_attention(*a, causal=False), (q, k, v),
+                 dout)
+    again = _grads(lambda *a: FA.flash_attention(*a, causal=False),
+                   (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert FA.bwd_launches == n0 + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = _grads(lambda *a: attention_ref(*a, causal=False).float(),
+                 [x.float() for x in (q, k, v)], dout.float())
+    _assert_grads_close(got, [r.to(dt) for r in ref], _tol(dt),
+                        f"flash_attention {dtype}")
+
+
+def test_whisper_full_width_decode_matches_forward(cuda):
+    """whisper-medium at full width (d 1024, 16 heads, 1500 frames), 2 + 2
+    layers, fp32: ``cross_kv`` filled from the encoder output through
+    each decoder layer's ``cross.wk`` / ``cross.wv``, then 16 tokens fed
+    one by one through ``decode_step`` give the forward's logits (2 + 2 +
+    2 ``flash_attention`` launches: encoder, decoder self, cross).  The
+    fill is ``chip_smoke.fill_cross_kv``."""
+    from chip_smoke import fill_cross_kv
+
+    cfg = dataclasses.replace(get_config("whisper-medium"), dtype="float32",
+                              n_layers=2, enc_layers=2)
+    params = TM.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                            device=cuda)
+    rng = np.random.default_rng(16)
+    toks = torch.tensor(rng.integers(0, cfg.vocab, size=(2, 16)),
+                        device=cuda)
+    frames = _t(rng.normal(size=(2, cfg.enc_seq, cfg.d_model)),
+                torch.float32, cuda)
+    n0 = FA.launches
+    full = TM.forward(params, cfg, {"tokens": toks, "enc_frames": frames})
+    torch.cuda.synchronize()
+    assert FA.launches == n0 + 6
+    cache = TM.init_cache(cfg, 2, 16, device=cuda)
+    fill_cross_kv(torch, params, cfg, {"enc_frames": frames}, cache)
+    outs = []
+    for t in range(16):
+        logits, _ = TM.decode_step(params, cfg, cache, {
+            "tokens": toks[:, t:t + 1],
+            "cache_index": torch.tensor(t, device=cuda)})
+        outs.append(logits)
+    dec = torch.stack(outs, dim=1)
+    torch.testing.assert_close(dec, full, atol=1e-4, rtol=1e-4)
+    assert torch.equal(dec.argmax(-1), full.argmax(-1))

@@ -281,18 +281,13 @@ def test_prefill_rejected_for_unsupported_cache_families():
                          "count": torch.ones(1, dtype=torch.long)})
 
 
-@pytest.mark.parametrize("arch", ["whisper-medium", "llama-3.2-vision-90b"])
-def test_unported_families_raise_and_name_their_roadmap_item(arch):
-    cfg = t_get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        TM.init_params(cfg, torch.Generator().manual_seed(0), device=CPU)
-
-
-@pytest.mark.parametrize("arch", ARCHS + SSM_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + SSM_ARCHS + [
+    "whisper-medium", "llama-3.2-vision-90b"])
 def test_init_params_matches_reference_tree(arch):
     """The torch-native init builds the reference's tree: same keys,
     shapes and dtypes (bf16 experts, fp32 router, fp32 ``A_log``/``D``
-    inside bf16 mamba stacks), and the reference's scales (embed std 0.02,
+    inside bf16 mamba stacks, whisper's ``enc_norm``, the vlm's nested
+    ``(g, k-1)`` self stack), and the reference's scales (embed std 0.02,
     weights std fan_in^-0.5; attention-free falcon has no ``wq``)."""
     cfg = get_config(arch, smoke=True)
     tcfg = t_get_config(arch, smoke=True)
@@ -314,9 +309,11 @@ def test_init_params_matches_reference_tree(arch):
         assert tuple(tflat[k].shape) == v.shape, k
         assert str(tflat[k].dtype).split(".")[-1] == v.dtype.name, k
     assert abs(float(tp["embed"].float().std()) - 0.02) < 2e-3
-    if "attn" not in tp["layers"]:
+    stack = next(tp[k] for k in ("layers", "dec_layers", "self_layers")
+                 if k in tp)
+    if "attn" not in stack:
         return
-    wq = tp["layers"]["attn"]["wq"]["w"].float()
+    wq = stack["attn"]["wq"]["w"].float()
     assert abs(float(wq.std()) - tcfg.d_model ** -0.5) < 0.1 * \
         tcfg.d_model ** -0.5
 
