@@ -21,8 +21,8 @@ one cross layer, since its ~180 GB of bf16 weights exceed the card):
 1. ``card``: the card's name and power limit from ``nvidia-smi``.
 2. ``moe_gmm``: the kernel pair against its plain PyTorch version at the
    serving shapes (E=32, d=1024, f=512, C=8 per decode step, C=80 per
-   prefill round, C=256 per 256-token forward), bf16 and fp32, and at a
-   training microbatch's C=1280 in bf16, with each
+   prefill round, C=256 per 256-token forward, C=1024 per EP round),
+   bf16 and fp32, and at a training microbatch's C=1280 in bf16, with each
    row's launch plan (tiles, ring depth, K splits), times of the kernels,
    the plain version and a ``torch.bmm`` chain, and the least time the
    card could take for the same work (fp32: three TF32 products per
@@ -97,17 +97,23 @@ one cross layer, since its ~180 GB of bf16 weights exceed the card):
 13. ``train``: granite at full width (24 layers, bf16) through
     ``build_train_step`` + ``init_opt_state``: seq 1024, global batch 8 in
     2 microbatches, policy ``afe``, sched policy ``dlbc``, four AdamW steps
-    on one batch (lr 1e-4, warmup 1): finite, falling losses, no skipped
-    step, step time, tokens/s, peak memory, and exactly 24 × 2 launches of
-    each kernel and each backward kernel per step; ``train_cli``:
+    on one batch (lr 1e-4, warmup 1), first without ``remat``, then with
+    it (the default: every layer checkpointed and recomputed in the
+    backward): finite, falling losses, no skipped step, step time,
+    tokens/s, peak memory, and exactly 24 × 2 launches of each backward
+    kernel per step and of each forward kernel without ``remat``, 24 × 2
+    × 2 with it; ``train_cli``:
     ``repro_torch.launch.train`` (8 smoke steps, checkpoints every 2, a
     crash after step 5, then the same run resumes from step 4) against an
     uninterrupted run, final losses within 1e-5.
 14. hymba-1.5b training: ``train_grads`` at full width, 2 layers, fp32,
     the scan in two chained 128-token chunks; ``train`` at full width (32
     layers, bf16), seq 1024, global batch 8 in 8 microbatches, four AdamW
-    steps, with exactly 32 × 8 launches of ``flash_attention`` and its
-    backward and 32 × 4 × 8 of ``ssm_scan`` and its backward per step.
+    steps without ``remat`` and four with it, with exactly 32 × 8
+    launches of ``flash_attention_bwd`` and 32 × 4 × 8 of
+    ``ssm_scan_bwd`` per step, and of the forwards 1× / 2× (attention)
+    and 2× / 3× (the scan) that; ``train_fit``: the same step in 4
+    microbatches of 2 sequences, or a row saying it does not fit.
 15. whisper-medium: ``flash_attention`` and its backward at its shapes
     (the encoder's non-causal S = T = 1500 at B 1 and at a training
     microbatch's B 4, cross attention of 448 decoder positions against
@@ -121,16 +127,30 @@ one cross layer, since its ~180 GB of bf16 weights exceed the card):
     causal decoder and 24 cross ``flash_attention`` launches;
     ``train_grads`` at 2 + 2 layers (B 2, S 64, 1500 frames) against the
     CPU; ``train``: four bf16 AdamW steps at seq 448, global batch 8 in 2
-    microbatches, 72 launches of ``flash_attention`` and of its backward
-    per microbatch.
+    microbatches, without ``remat`` and with it, 72 launches of
+    ``flash_attention_bwd`` per microbatch (and of ``flash_attention``
+    72 / 144).
 16. llama-3.2-vision-90b (10 layers): ``fp32_forward`` over 64 tokens
     and seeded patch embeddings against decode (8 causal self and 2
     cross launches), and ``wide_bf16``, a timed 512-token forward with
     10 ``flash_attention`` launches.
+17. ``dist_policies`` (after phase 13): a one-rank NCCL process group and
+    a ``make_test_mesh(data=1, model=1)`` mesh; full-width granite takes
+    two AdamW steps under each policy (``unopt``, ``lc``, ``afe``,
+    ``afe_bucket``; seq 1024, batch 8 in 2 microbatches) on the mesh and
+    without it, under deterministic algorithms: params bitwise equal,
+    each step's collective counts those derived from the param tree and
+    the bucket plan.
+18. ``ep_round``: the expert-parallel round on a one-rank expert axis at
+    granite's full MoE width (E 32, top-8, d 1024, f 512), 1024 tokens,
+    capacity factor E / top_k, fp32 and bf16: equal to the single-host
+    ``moe_apply`` (fp32 1e-5, bf16 the ``moe_gmm`` tolerance), one join
+    per round, one ``moe_gmm`` launch per round, the round's and
+    ``moe_apply``'s times.
 
 Each main-path run (each forward of phases 4, 7, 9, 10, 15 and 16; the
 serve CLI and the batcher run of phase 5 for ``moe_gmm``; the four steps
-of phases 13, 14 and 15 for the backward kernels) zeroes the launch counters
+of phases 13, 14 and 15 for the backward kernels, and each EP round) zeroes the launch counters
 just before it and reads them just after; the ``kernels`` line takes ``moe_gmm``'s
 count from the serve CLI, ``ssm_scan``'s from the fp32 falcon-mamba-7b
 forward, ``flash_attention``'s from the bf16 phi3-mini forward,
@@ -611,8 +631,7 @@ def phase_fp32_forward(torch, cfg, prompt_len: int, via: str) -> dict:
     finally:
         FA._forward = real
     L = cfg.n_layers
-    expect = {k: n for k, n in expected_launches(c32, prompt_len, 1).items()
-              if k in launches}
+    expect = expected_launches(c32, prompt_len, 1, train=False)
     n_cross = {"encdec": L, "vlm": L // max(1, cfg.cross_every)}.get(
         cfg.family, 0)
     expect_kinds = {"encoder": cfg.enc_layers, "cross": n_cross,
@@ -1040,7 +1059,7 @@ def phase_wide_bf16(torch, cfg, card: str, prompt_len: int) -> dict:
     fwd_ms = (time.perf_counter() - t0) * 1e3
     launches = {"flash_attention": FA.launches, "moe_gmm": MG.launches}
     expect = {"flash_attention": expected_launches(
-        cfg, prompt_len, 1)["flash_attention"],
+        cfg, prompt_len, 1, train=False)["flash_attention"],
               "moe_gmm": cfg.n_layers if cfg.n_experts else 0}
     finite = bool(torch.isfinite(fwd).all())
     row = {"phase": "wide_bf16", "arch": cfg.name, "dtype": cfg.dtype,
@@ -1068,13 +1087,15 @@ def phase_wide_bf16(torch, cfg, card: str, prompt_len: int) -> dict:
 
 
 def train_setup(torch, cfg, seed: int = SEED, seq_len: int = 1024,
-                global_batch: int = 8, microbatches: int = 2):
+                global_batch: int = 8, microbatches: int = 2,
+                remat: bool = True):
     """The training step of phase 13, which
     ``benchmarks/torch_train_profile.py`` profiles: ``cfg`` on the card
     with random weights from ``seed``, ``init_opt_state`` and
     ``build_train_step`` (``seq_len`` tokens, ``global_batch`` sequences
-    in ``microbatches``, policy ``afe``, sched policy ``dlbc``, AdamW at lr
-    1e-4 with warmup 1) and one fixed batch (with seeded frame or patch
+    in ``microbatches``, policy ``afe``, sched policy ``dlbc``, ``remat``
+    (each layer checkpointed; the default), AdamW at lr 1e-4 with warmup
+    1) and one fixed batch (with seeded frame or patch
     embeddings for encdec and vlm).  Returns (step, params, opt, batch,
     shape)."""
     from repro_torch.configs.base import ShapeConfig
@@ -1089,7 +1110,7 @@ def train_setup(torch, cfg, seed: int = SEED, seq_len: int = 1024,
     ocfg = AdamWConfig(lr=1e-4, warmup_steps=1)
     opt = init_opt_state(params, ocfg)
     step, _ = build_train_step(cfg, shape, StepConfig(
-        policy="afe", sched_policy="dlbc"), ocfg)
+        policy="afe", sched_policy="dlbc", remat=remat), ocfg)
     toks = torch.randint(0, cfg.vocab, (shape.global_batch,
                                         shape.seq_len + 1),
                          generator=gen, device="cuda")
@@ -1121,21 +1142,33 @@ def zero_counters() -> None:
 
 
 def expected_launches(cfg, seq_len: int, microbatches: int,
-                      ssm_chunk: int = 256) -> dict:
-    """Each kernel's launches in one forward + backward per microbatch:
-    one per attention layer (encdec: each encoder layer, and each decoder
-    layer twice, self and cross; vlm: each self and each cross layer),
-    one per MoE layer, one per mamba layer and ``ssm_chunk`` tokens; each
-    backward kernel as often as its forward."""
+                      ssm_chunk: int = 256, *, train: bool = True,
+                      remat: bool = True) -> dict:
+    """Each kernel's launches per microbatch: one per attention layer
+    (encdec: each encoder layer, and each decoder layer twice, self and
+    cross; vlm: each self and each cross layer), one per MoE layer, one
+    per mamba layer and ``ssm_chunk`` tokens in a forward
+    (``train=False``).  A training pass (forward + backward) launches
+    each backward kernel once per forward site, and its forward kernels
+    again where autograd rematerialises: with ``remat`` every layer runs
+    twice (the forward, then its recompute in the backward), and a
+    mamba chunk's scan three times (the forward, the layer's recompute,
+    then the chunk's own checkpoint inside it); without ``remat`` the
+    layers once and the scan twice (its chunk is checkpointed whatever
+    ``remat`` says, as the reference's ``chunk_body``)."""
     L = cfg.n_layers
     attn = {"ssm": 0, "encdec": cfg.enc_layers + 2 * L}.get(cfg.family, L)
     per = {"flash_attention": attn,
            "moe_gmm": L if cfg.n_experts else 0,
            "ssm_scan": L * max(1, seq_len // ssm_chunk)
            if cfg.family in ("ssm", "hybrid") else 0}
+    again = {"flash_attention": 2 if remat else 1,
+             "moe_gmm": 2 if remat else 1, "ssm_scan": 3 if remat else 2}
     out = {}
     for k, n in per.items():
-        out[k] = out[k + "_bwd"] = n * microbatches
+        out[k] = n * microbatches * (again[k] if train else 1)
+        if train:
+            out[k + "_bwd"] = n * microbatches
     return out
 
 
@@ -1218,23 +1251,26 @@ def phase_train_grads(torch, cfg, S: int = 256, ssm_chunk: int = 256
 
 
 def phase_train(torch, cfg, card: str, steps: int = 4, seq_len: int = 1024,
-                global_batch: int = 8, microbatches: int = 2) -> dict:
+                global_batch: int = 8, microbatches: int = 2,
+                remat: bool = True) -> dict:
     """``cfg`` at full width (bf16): the step of :func:`train_setup`
     (``build_train_step`` + ``init_opt_state``, policy ``afe``, sched
-    policy ``dlbc``); ``steps`` AdamW steps (lr 1e-4, warmup 1) on one
-    fixed batch.  Every step must launch each kernel and each backward
-    kernel exactly as :func:`expected_launches` says (granite: 24 × 2 of
-    ``flash_attention`` and ``moe_gmm``; hymba-1.5b: 32 × 8 of
-    ``flash_attention`` and 32 × 4 chunks × 8 of ``ssm_scan``); losses
-    finite and falling."""
+    policy ``dlbc``, ``remat`` as given); ``steps`` AdamW steps (lr 1e-4,
+    warmup 1) on one fixed batch.  Every step must launch each kernel and
+    each backward kernel exactly as :func:`expected_launches` says
+    (granite with ``remat``: 24 × 2 × 2 of ``flash_attention`` and
+    ``moe_gmm``, 24 × 2 of each backward; hymba-1.5b at 8 microbatches:
+    32 × 8 × 2 of ``flash_attention`` and 32 × 4 chunks × 8 × 3 of
+    ``ssm_scan``); losses finite and falling; peak memory and step times
+    printed."""
     from repro_torch.tree import tree_leaves
 
     torch.cuda.reset_peak_memory_stats()
     step, params, opt, batch, shape = train_setup(
         torch, cfg, seq_len=seq_len, global_batch=global_batch,
-        microbatches=microbatches)
+        microbatches=microbatches, remat=remat)
     S, B, Mb = shape.seq_len, shape.global_batch, shape.microbatches
-    expect = expected_launches(cfg, S, Mb)
+    expect = expected_launches(cfg, S, Mb, remat=remat)
     losses, norms, skipped, step_ms, per_step = [], [], [], [], []
     torch.cuda.synchronize()
     zero_counters()
@@ -1255,7 +1291,8 @@ def phase_train(torch, cfg, card: str, steps: int = 4, seq_len: int = 1024,
     row = {"phase": "train", "arch": cfg.name, "dtype": cfg.dtype,
            "card": card, "layers": cfg.n_layers, "params": n_params,
            "seq_len": S, "global_batch": B, "microbatches": Mb,
-           "policy": "afe", "sched_policy": "dlbc", "steps": steps,
+           "policy": "afe", "sched_policy": "dlbc", "remat": remat,
+           "steps": steps,
            "losses": losses, "grad_norms": norms,
            "nonfinite_skipped": sum(skipped), "step_ms": step_ms,
            "first_step_ms": step_ms[0], "rest_step_ms": rest,
@@ -1329,6 +1366,236 @@ def phase_train_cli(torch, arch: str) -> dict:
             resumed["completed"] != 8 or diff > 1e-5:
         raise AssertionError(f"train_cli: {row}")
     return row
+
+
+def phase_train_fit(torch, cfg, card: str, microbatches: int) -> dict:
+    """Whether ``cfg``'s training step at seq 1024, global batch 8 fits
+    the card in ``microbatches`` (with ``remat``): :func:`phase_train`'s
+    row when it does; when the card runs out of memory, a row that says
+    so (the finding: the step keeps its smaller microbatches)."""
+    import gc
+
+    try:
+        row = phase_train(torch, cfg, card, 4, 1024, 8, microbatches)
+        row = {"phase": "train_fit", "fits": True, **{
+            k: row[k] for k in ("arch", "microbatches", "rest_step_ms",
+                                "tokens_per_s", "max_memory_allocated_gb")}}
+    except torch.cuda.OutOfMemoryError as e:
+        row = {"phase": "train_fit", "arch": cfg.name, "fits": False,
+               "microbatches": microbatches, "error": str(e)[:300]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(row)
+    return row
+
+
+# ---------------------------------------------------------------------------
+# Phases 17-18: distribution (world size 1, NCCL) and the EP round
+# ---------------------------------------------------------------------------
+
+
+def nccl_world_of_one(torch):
+    """A one-rank NCCL process group (a file store under ``build/``)."""
+    import shutil
+
+    import torch.distributed as dist
+
+    store = ROOT / "build" / f"chip_smoke_nccl_{os.getpid()}"
+    shutil.rmtree(store, ignore_errors=True)
+    store.mkdir(parents=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}/store",
+                            rank=0, world_size=1)
+    return store
+
+
+def expected_collectives(cfg, policy: str, microbatches: int,
+                         n_buckets: int) -> dict:
+    """A step's collectives by kind, from the param tree and the bucket
+    plan: ``unopt`` all-reduces every leaf per microbatch, ``lc`` once;
+    ``afe`` reduce-scatters and all-gathers each FSDP-sharded leaf and
+    all-reduces each replicated one and the norm's sums; ``afe_bucket``
+    reduce-scatters each bucket's sharded leaves, all-reduces the
+    replicated ones as one bucket and the norm's sums, and all-gathers
+    each bucket's sharded params by dtype."""
+    from repro_torch.distributed.sharding import (
+        MeshShape, fsdp_layout, mesh_context)
+    from repro_torch.models import model as TM
+    from repro_torch.sched import FixedCapacity
+    from repro_torch.train.train_step import _bucket_bins
+    from repro_torch.tree import tree_leaves
+
+    leaves = tree_leaves(TM.param_shapes(cfg))
+    with mesh_context(MeshShape(("data", "model"), (1, 1))):
+        dims = tree_leaves(fsdp_layout(TM.param_shapes(cfg), cfg, 0, 1)
+                           .dims)
+    n, ns = len(leaves), sum(d is not None for d in dims)
+    out = dict.fromkeys(("all_reduce", "reduce_scatter", "all_gather",
+                         "all_to_all", "send_recv"), 0)
+    if policy == "unopt":
+        out["all_reduce"] = microbatches * n
+    elif policy == "lc":
+        out["all_reduce"] = n
+    elif policy == "afe":
+        out.update(reduce_scatter=ns, all_gather=ns, all_reduce=n - ns + 1)
+    else:
+        bins = [[i for i in b if dims[i] is not None] for b in _bucket_bins(
+            leaves, n_buckets, "dlbc", FixedCapacity(
+                idle_n=n_buckets - 1, total_n=n_buckets))]
+        out.update(reduce_scatter=sum(1 for b in bins if b),
+                   all_reduce=(1 if n > ns else 0) + 1,
+                   all_gather=sum(len({leaves[i].dtype for i in b})
+                                  for b in bins))
+    return out
+
+
+def phase_dist_policies(torch, cfg, card: str, steps: int = 2) -> dict:
+    """``cfg`` at full width (bf16), seq 1024, global batch 8 in 2
+    microbatches: ``steps`` AdamW steps of each policy (``unopt``, ``lc``,
+    ``afe``, ``afe_bucket``) on a ``make_test_mesh(data=1, model=1)``
+    NCCL mesh, and the same steps without a mesh from the same seed,
+    under deterministic algorithms (the embedding gradient's scatter-add
+    would otherwise sum in another order each run).  The params must be
+    bitwise equal (a one-rank all-reduce, reduce-scatter or all-gather is
+    a copy), and each step's collective counts those of
+    :func:`expected_collectives`."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.device import parity_mode
+    from repro_torch.distributed.sharding import mesh_context
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import model as TM
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import StepConfig, build_train_step
+    from repro_torch.tree import tree_leaves
+
+    store = nccl_world_of_one(torch)
+    parity_mode(deterministic=True)
+    shape = ShapeConfig("train", 1024, 8, "train", microbatches=2)
+    ocfg = AdamWConfig(lr=1e-4, warmup_steps=1)
+    rows = []
+    try:
+        mesh = make_test_mesh(data=1, model=1)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        toks = torch.randint(0, cfg.vocab, (8, 1025), generator=gen,
+                             device="cuda")
+        batch = {"tokens": toks[:, :-1].contiguous(),
+                 "labels": toks[:, 1:].contiguous()}
+        for policy in ("unopt", "lc", "afe", "afe_bucket"):
+            got, ms, counts = {}, {}, []
+            for where in ("none", "mesh"):
+                with mesh_context(mesh if where == "mesh" else None):
+                    params = TM.init_params(cfg, torch.Generator(
+                        device="cuda").manual_seed(SEED), device="cuda")
+                    step, _ = build_train_step(cfg, shape, StepConfig(
+                        policy=policy), ocfg)
+                    opt = init_opt_state(params, ocfg, layout=step.layout)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(steps):
+                        params, opt, m = step(params, opt, batch)
+                        if where == "mesh":
+                            counts.append(m["collectives"])
+                    torch.cuda.synchronize()
+                ms[where] = (time.perf_counter() - t0) * 1e3 / steps
+                got[where] = tree_leaves(params)
+                del opt, m
+            equal = all(torch.equal(a, b)
+                        for a, b in zip(got["none"], got["mesh"]))
+            worst = max(float((a.float() - b.float()).abs().max())
+                        for a, b in zip(got["none"], got["mesh"]))
+            expect = expected_collectives(cfg, policy, 2,
+                                          StepConfig().n_buckets)
+            row = {"phase": "dist_policies", "arch": cfg.name,
+                   "dtype": cfg.dtype, "card": card, "policy": policy,
+                   "world_size": dist.get_world_size(), "backend":
+                       dist.get_backend(), "steps": steps,
+                   "params_bitwise_equal": equal, "max_abs_diff": worst,
+                   "collectives_per_step": counts,
+                   "expected_per_step": expect,
+                   "step_ms_no_mesh": ms["none"], "step_ms_mesh": ms["mesh"]}
+            emit(row)
+            rows.append(row)
+            del got, params
+            torch.cuda.empty_cache()
+            if not equal:
+                raise AssertionError(f"dist_policies {policy}: params differ "
+                                     f"from the mesh-free steps by {worst}")
+            if any(c != expect for c in counts):
+                raise AssertionError(f"dist_policies {policy}: collectives "
+                                     f"{counts} != {expect}")
+    finally:
+        parity_mode(deterministic=False)
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    return rows
+
+
+def phase_ep_round(torch, cfg, card: str, T: int = 1024) -> list:
+    """``ep_round`` on a one-rank expert axis (``make_test_mesh(data=1,
+    model=1, expert=1)``, NCCL) at ``cfg``'s full MoE width, ``T`` tokens,
+    capacity factor E / top_k (ample), fp32 (TF32 off) and bf16: equal to
+    the single-host ``moe_apply`` (fp32 max |Δ| < 1e-5, bf16 within the
+    ``moe_gmm`` tolerance), ``joins == rounds == 1``, exactly one
+    ``moe_gmm`` launch per round; the round's and ``moe_apply``'s times
+    (CUDA events, mean of 10 after 2 warm-up)."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.device import torch_dtype
+    from repro_torch.ep.dispatch import ep_round
+    from repro_torch.kernels.moe_dispatch import moe_gmm as MG
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import moe as M
+    from repro_torch.sched import SchedTelemetry
+
+    store = nccl_world_of_one(torch)
+    rows = []
+    try:
+        mesh = make_test_mesh(data=1, model=1, expert=1)
+        for dtype in ("float32", "bfloat16"):
+            c = dataclasses.replace(
+                cfg, dtype=dtype, expert_parallel=True,
+                moe_capacity_factor=cfg.n_experts / cfg.top_k)
+            host = dataclasses.replace(c, expert_parallel=False)
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            p = M.moe_init(gen, c, torch_dtype(dtype))
+            x = torch.randn(T, c.d_model, generator=gen,
+                            device="cuda").to(torch_dtype(dtype))
+            want = M.moe_apply(p, host, x)
+            tel = SchedTelemetry()
+            torch.cuda.synchronize()
+            MG.launches = 0
+            got, st = ep_round(p, c, x, mesh=mesh, telemetry=tel)
+            launches = MG.launches
+            tol = 1e-5 if dtype == "float32" else 2e-2 * 5
+            err = max_err(torch, got, want, tol, 0.0 if dtype == "float32"
+                          else tol, f"ep_round {dtype}")
+            ep_ms = time_ms(torch, lambda: ep_round(p, c, x, mesh=mesh), 10)
+            host_ms = time_ms(torch, lambda: M.moe_apply(p, host, x), 10)
+            row = {"phase": "ep_round", "arch": cfg.name, "card": card,
+                   "dtype": dtype, "T": T, "E": c.n_experts, "top_k":
+                       c.top_k, "capacity_factor": c.moe_capacity_factor,
+                   "n_shards": st["n_shards"], "world_size":
+                       dist.get_world_size(), "backend": dist.get_backend(),
+                   "max_abs_err": err, "tol": tol, "joins": tel.joins,
+                   "rounds": st["rounds"], "spawns": st["spawns"],
+                   "sent": st["sent"], "dropped": st["dropped"],
+                   "moe_gmm_launches_per_round": launches,
+                   "ep_round_ms": ep_ms, "moe_apply_ms": host_ms}
+            emit(row)
+            rows.append(row)
+            if not (tel.joins == st["rounds"] == st["joins"] == 1
+                    and launches == 1 and st["dropped"] == 0):
+                raise AssertionError(f"ep_round {dtype}: {row}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1424,10 +1691,11 @@ def main() -> int:
     mixtral = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=2)
     # granite: C = 8, a decode step of 8 slots; C = 80, a prefill round of
     # 8 x 32 tokens; C = 256, the 256-token forward of phase 4; C = 1280,
-    # a training microbatch of 4 x 1024 tokens (phase 13)
+    # a training microbatch of 4 x 1024 tokens (phase 13); C = 1024, the
+    # EP round's 1024 tokens at capacity factor E / top_k (phase 18)
     moe_rows = timed(phase_moe_gmm, torch, cfg,
-                     (("bfloat16", (8, 80, 256, 1280)),
-                      ("float32", (8, 80, 256))))
+                     (("bfloat16", (8, 80, 256, 1280, 1024)),
+                      ("float32", (8, 80, 256, 1024))))
     # granite: S = 256 fp32 causal is the forward of phase 4, S = 2048 a
     # long prompt; hymba (G = 5, window 1024): S = 256 fp32 is the forward
     # of phase 7; phi3-mini (dh 96, G = 1) and mixtral (window 4096): the
@@ -1469,12 +1737,24 @@ def main() -> int:
         ("bfloat16", (1280, 8)), ("float32", (1280,))))
     ssm_bwd_rows = timed(phase_ssm_scan_bwd, torch)
     timed(phase_train_grads, torch, cfg)
+    # each full-width train phase without remat first (the peak memory
+    # and step time it costs), then with it (the default, whose launches
+    # the kernels line reports)
+    timed(phase_train, torch, cfg, smi, 4, 1024, 8, 2, False)
     train = timed(phase_train, torch, cfg, smi)
     timed(phase_train_cli, torch, cfg.name)
+    # distribution at world size 1 on NCCL: the four policies' steps on a
+    # mesh bitwise equal to the mesh-free ones, collectives counted; the
+    # EP round through moe_gmm against the single-host moe_apply
+    timed(phase_dist_policies, torch, cfg, smi)
+    timed(phase_ep_round, torch, cfg, smi)
     # hymba-1.5b: 2-layer fp32 gradients in two chained scan chunks, then
     # full-width bf16 AdamW steps, seq 1024, 8 microbatches of 1 sequence
+    # (without remat, then with it), then 4 microbatches of 2 sequences
     timed(phase_train_grads, torch, hymba, 256, 128)
+    timed(phase_train, torch, hymba, smi, 4, 1024, 8, 8, False)
     hymba_train = timed(phase_train, torch, hymba, smi, 4, 1024, 8, 8)
+    timed(phase_train_fit, torch, hymba, smi, 4)
     # the encoder-decoder and vision-language families (phases 15-16):
     # flash_attention at their shapes — whisper's encoder (S = T = 1500,
     # non-causal), its cross attention (448 decoder positions, Whisper's
@@ -1512,6 +1792,7 @@ def main() -> int:
         A(vlm, 512, "bfloat16", T=V, causal=False, what="vlm cross")))
     timed(phase_fp32_forward, torch, whisper, 64, "decode")
     timed(phase_train_grads, torch, whisper, 64)
+    timed(phase_train, torch, whisper, smi, 4, 448, 8, 2, False)
     whisper_train = timed(phase_train, torch, whisper, smi, 4, 448, 8, 2)
     timed(phase_fp32_forward, torch, vlm, 64, "decode")
     timed(phase_wide_bf16, torch, vlm, smi, 512)

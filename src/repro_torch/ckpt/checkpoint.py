@@ -5,17 +5,23 @@ Port of ``repro/ckpt/checkpoint.py``, with the reference's on-disk layout
 ``COMMIT`` marker), so a checkpoint written by either package restores in
 the other.  Trees are nested dicts of torch tensors; bf16 travels as a
 ``uint16`` view with the logical dtype in the manifest, as
-:mod:`repro_torch.bridge` does (no ``ml_dtypes`` needed).  One process
-writes every shard (``proc`` 0) until the port has a mesh (ROADMAP Queue 1
-item 11), which also brings the resharding restore.
+:mod:`repro_torch.bridge` does (no ``ml_dtypes`` needed).  ``proc`` is the
+``torch.distributed`` rank (0 without a process group): every rank writes
+its own shard files and manifest, and a leaf that is the rank's FSDP piece
+(the ``afe`` policies' optimizer state) carries ``"split": [dim, length]``
+in its manifest entry.  A restore at the world size that saved reads this
+rank's files; at another world size it gathers every rank's pieces into
+whole tensors (the resharding restore: at world size 1, the whole state).
 
 Design (multi-host-shaped, exercised single-host here):
 
-* each host writes only its **addressable shards**
+* each rank writes only its own shards
   as ``<step>/shard_<proc>_<i>.npy`` files plus a pytree manifest;
-* writes go to a temp dir, fsync'd, then atomically renamed —
-  a crash mid-write never corrupts the latest checkpoint
-  (the trainer's restore scans for the newest *complete* step);
+* writes go to a temp dir, then are atomically renamed — a crash
+  mid-write never corrupts the latest checkpoint (the trainer's restore
+  scans for the newest *complete* step); with several ranks each moves
+  its files in, its manifest last, and the rank that finds every
+  manifest present writes ``COMMIT``;
 * saving is asynchronous and scheduled by ``repro_torch.sched``: the
   tensors are snapshotted to host memory in the trainer thread (a copy:
   the optimizer updates its tensors in place), then the per-shard file
@@ -43,6 +49,7 @@ from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 from ..obs import trace as obs
@@ -101,7 +108,8 @@ class CheckpointManager:
 
     # -- save ---------------------------------------------------------------
 
-    def save(self, step: int, tree: dict, *, blocking: bool = False):
+    def save(self, step: int, tree: dict, *, blocking: bool = False,
+             splits: Optional[dict] = None):
         """Snapshot to host, then write shards through the scheduler.
 
         Returns once the shard writes are *scheduled* (plus whatever chunk
@@ -111,6 +119,10 @@ class CheckpointManager:
         ``wait()``/``save()``/``close()`` — callers wanting overlap with
         bounded exposure should ``wait()`` shortly after (the trainer
         does so one step later, once the I/O has had a step to finish).
+
+        ``splits`` maps the path of each leaf that is this rank's FSDP
+        piece (``"/opt/m/..."``) to ``(dim, whole length)``
+        (:meth:`~repro_torch.distributed.sharding.FsdpLayout.splits`).
         """
         with obs.trace_span("ckpt", "snapshot", {"step": step}
                             if obs.enabled() else None):
@@ -120,7 +132,7 @@ class CheckpointManager:
         self.wait()
         self._scope = FinishScope(self.telemetry) \
             if self.policy.escape_join else None
-        self._finalize = self._write(step, snap, self._scope)
+        self._finalize = self._write(step, snap, self._scope, splits or {})
         if blocking:
             self.wait()
 
@@ -159,14 +171,15 @@ class CheckpointManager:
         self.close()
         return False
 
-    def _write(self, step: int, snap: dict, scope: Optional[FinishScope]):
+    def _write(self, step: int, snap: dict, scope: Optional[FinishScope],
+               splits: dict):
         """Schedule the shard writes; return the publish closure.
 
         The manifest is fully determined by the snapshot, so it is built
         up front and only the ``np.save`` calls — the actual I/O — run as
         scheduled tasks.
         """
-        proc = _PROC
+        proc, world = _proc()
         tmp = self.dir / f"tmp_{step}_{proc}_{os.getpid()}"
         final = self.dir / f"step_{step:010d}"
         if tmp.exists():
@@ -178,6 +191,8 @@ class CheckpointManager:
             fname = f"shard_{proc}_{i}.npy"
             manifest[path] = {"file": fname, "shape": list(arr.shape),
                               "dtype": logical_dtype}
+            if path in splits:
+                manifest[path]["split"] = list(splits[path])
             # the shard index rides along as the retry jitter key — a
             # stable int, never hash(filename) (salted per process)
             shard_jobs.append((tmp / fname, arr, i))
@@ -234,14 +249,18 @@ class CheckpointManager:
                                 if obs.enabled() else None):
                 (tmp / f"manifest_{proc}.json").write_text(
                     json.dumps(manifest))
-                # wall-clock commit timestamp on purpose (it is read by
-                # humans across restarts, not differenced)
-                (tmp / "COMMIT").write_text(str(time.time()))
-                # Atomic publish.
-                if final.exists():
-                    shutil.rmtree(final)
-                os.replace(tmp, final)
-                self._gc()
+                if world == 1:
+                    # wall-clock commit timestamp on purpose (it is read
+                    # by humans across restarts, not differenced)
+                    (tmp / "COMMIT").write_text(str(time.time()))
+                    # Atomic publish.
+                    if final.exists():
+                        shutil.rmtree(final)
+                    os.replace(tmp, final)
+                else:
+                    _publish_rank(tmp, final, proc, world)
+                if proc == 0:
+                    self._gc()
 
         return publish
 
@@ -266,29 +285,62 @@ class CheckpointManager:
     def restore(self, step: Optional[int] = None,
                 device: Optional[Union[str, torch.device]] = None) -> tuple:
         """Returns (step, tree) with the tensors on ``device`` (``None`` =
-        the card).  Placing them under a mesh sharding (the reference's
-        elastic restart) waits for the port's mesh (item 11)."""
+        the card).  At the world size that saved, this rank's own files
+        (its FSDP pieces, exactly); at another, every leaf whole: split
+        leaves are concatenated from every rank's pieces along their dim
+        and cut to their length, the others read from rank 0's files."""
         dev = resolve_device(device)
         if step is None:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no complete checkpoint in {self.dir}")
         d = self.dir / f"step_{step:010d}"
-        manifest = json.loads((d / f"manifest_{_PROC}.json").read_text())
+        proc, world = _proc()
+        saved = len(list(d.glob("manifest_*.json")))
+        manifests = [json.loads((d / f"manifest_{r}.json").read_text())
+                     for r in ((proc,) if saved == world else range(saved))]
         items = {}
-        for path, meta in manifest.items():
-            arr = np.load(d / meta["file"])
-            if meta["dtype"] == "bfloat16":
-                t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+        for path, meta in manifests[0].items():
+            if saved == world or "split" not in meta:
+                t = _load(d, meta)
             else:
-                t = torch.from_numpy(arr.astype(np.dtype(meta["dtype"]),
-                                                copy=False))
+                dim, length = meta["split"]
+                t = torch.cat([_load(d, m[path]) for m in manifests],
+                              dim=dim).narrow(dim, 0, length)
             items[path] = t.to(dev)
         return step, _unflatten_from_paths(items)
 
 
-#: the process index of the shard files: one process until item 11
-_PROC = 0
+def _proc() -> tuple:
+    """``(rank, world size)`` of the shard files: the ``torch.distributed``
+    process group's, or ``(0, 1)`` without one."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _publish_rank(tmp: Path, final: Path, proc: int, world: int) -> None:
+    """Move one rank's files into ``final``, its manifest last; the rank
+    that then finds all ``world`` manifests writes ``COMMIT`` (each rank
+    writes its manifest before it looks, so at least one sees them all)."""
+    final.mkdir(parents=True, exist_ok=True)
+    manifest = f"manifest_{proc}.json"
+    for f in sorted(tmp.iterdir()):
+        if f.name != manifest:
+            os.replace(f, final / f.name)
+    os.replace(tmp / manifest, final / manifest)
+    tmp.rmdir()
+    if all((final / f"manifest_{r}.json").exists() for r in range(world)):
+        commit = final / f"COMMIT.{proc}.tmp"
+        commit.write_text(str(time.time()))
+        os.replace(commit, final / "COMMIT")
+
+
+def _load(d: Path, meta: dict) -> torch.Tensor:
+    arr = np.load(d / meta["file"])
+    if meta["dtype"] == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr.astype(np.dtype(meta["dtype"]), copy=False))
 
 
 def _to_host(t: torch.Tensor) -> tuple:

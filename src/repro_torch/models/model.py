@@ -21,9 +21,11 @@ import itertools
 from typing import Optional, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device, torch_dtype
+from ..distributed.sharding import shard_act, shard_logits
 from . import blocks as B
 from . import layers as L
 
@@ -183,35 +185,42 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     backward kernels (``flash_attention``, ``moe_gmm``, ``ssm_scan``).
     ``schedule``/``q_chunk``/``k_chunk`` are accepted for signature parity
     and have no effect (the kernels bound their loops themselves).
-    ``remat`` is accepted and has no effect either: autograd keeps every
-    layer's activations (no rematerialisation; a mamba layer keeps its
-    fp32 ``dA`` and ``dBx``), and the card runs report the peak memory
-    that costs."""
-    x = params["embed"][batch["tokens"].long()]
+
+    ``remat`` (the default, as in the reference's ``jax.checkpoint(...,
+    nothing_saveable)`` over the layer scan): when grad is enabled, each
+    layer runs under non-reentrant ``torch.utils.checkpoint``, which keeps
+    only the layer's inputs and runs the layer again in the backward (so
+    every kernel a layer launches launches twice per training
+    microbatch).  Without grad nothing is wrapped."""
+    x = shard_act(params["embed"][batch["tokens"].long()])
     kw = dict(schedule=schedule, q_chunk=q_chunk, k_chunk=k_chunk,
               ssm_chunk=ssm_chunk)
+    layer = B.layer_apply
+    if remat and torch.is_grad_enabled():
+        def layer(*a, **k):
+            return checkpoint(B.layer_apply, *a, use_reentrant=False, **k)
     if cfg.family == "encdec":
-        enc = batch["enc_frames"].to(x.dtype)
+        enc = shard_act(batch["enc_frames"].to(x.dtype))
         for p in _unbind(params["enc_layers"]):
-            enc = B.layer_apply(p, cfg, enc, "enc", causal=False, **kw)
+            enc = layer(p, cfg, enc, "enc", causal=False, **kw)
         ctx = L.norm_apply(params["enc_norm"], enc, cfg.norm)
         for p in _unbind(params["dec_layers"]):
-            x = B.layer_apply(p, cfg, x, "dec", ctx=ctx, **kw)
+            x = layer(p, cfg, x, "dec", ctx=ctx, **kw)
     elif cfg.family == "vlm":
-        ctx = batch["vis_embed"].to(x.dtype)
+        ctx = shard_act(batch["vis_embed"].to(x.dtype))
         for gself, gcross in zip(_unbind(params["self_layers"]),
                                  _unbind(params["cross_layers"])):
             for p in _unbind(gself):
-                x = B.layer_apply(p, cfg, x, "dense", **kw)
-            x = B.layer_apply(gcross, cfg, x, "cross", ctx=ctx, **kw)
+                x = layer(p, cfg, x, "dense", **kw)
+            x = layer(gcross, cfg, x, "cross", ctx=ctx, **kw)
     else:
         kind = _plan(cfg)[0][1]
         for p in _unbind(params["layers"]):
-            x = B.layer_apply(p, cfg, x, kind, **kw)
+            x = layer(p, cfg, x, kind, **kw)
     if last_only:
         x = x[:, -1:]
     x = L.norm_apply(params["final_norm"], x, cfg.norm)
-    return x @ _head(params, cfg)
+    return shard_logits(x @ _head(params, cfg))
 
 
 def loss_fn(params, cfg, batch, **kw):
@@ -283,7 +292,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     encdec and vlm read the cross layers' K/V from ``cache["cross_kv"]``
     (decoder layer ``i`` or group ``gi``)."""
     ci = batch["cache_index"]
-    x = params["embed"][batch["tokens"].long()]
+    x = shard_act(params["embed"][batch["tokens"].long()])
     if cfg.family == "vlm":
         selfp, selfc = params["self_layers"], cache["self_layers"]
         for gi in range(_n_layers(params["cross_layers"])):
@@ -307,7 +316,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
             x, _ = B.layer_decode_apply(_layer(stack, i), cfg, x,
                                         _layer(cache["layers"], i), ci, kind)
     x = L.norm_apply(params["final_norm"], x, cfg.norm)
-    return (x @ _head(params, cfg))[:, 0], cache
+    return shard_logits((x @ _head(params, cfg))[:, 0]), cache
 
 
 def prefill_step(params: dict, cfg: ModelConfig, cache: dict,
@@ -340,7 +349,7 @@ def prefill_step(params: dict, cfg: ModelConfig, cache: dict,
     cache_index = torch.as_tensor(batch["cache_index"], device=dev).long()
     count = torch.as_tensor(batch["count"], device=dev).long()
     kind = _plan(cfg)[0][1]
-    x = params["embed"][tokens.long()]
+    x = shard_act(params["embed"][tokens.long()])
     stack = params["layers"]
     for i in range(_n_layers(stack)):
         x, _ = B.layer_prefill_apply(_layer(stack, i), cfg, x,
@@ -349,4 +358,4 @@ def prefill_step(params: dict, cfg: ModelConfig, cache: dict,
     x = L.norm_apply(params["final_norm"], x, cfg.norm)
     last = torch.clamp(count - 1, 0, tokens.shape[1] - 1)
     x = torch.gather(x, 1, last[:, None, None].expand(-1, 1, x.shape[-1]))
-    return (x @ _head(params, cfg))[:, 0], cache
+    return shard_logits((x @ _head(params, cfg))[:, 0]), cache

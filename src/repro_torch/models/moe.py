@@ -1,6 +1,6 @@
 """Mixture-of-Experts with DLBC-balanced dispatch.
 
-Port of ``repro/models/moe.py`` (single-host dispatch):
+Port of ``repro/models/moe.py``:
 
 * **LC dispatch** (``moe_dispatch="lc"``) — static GShard top-k with a
   fixed per-expert capacity; over-capacity (token, choice) pairs are
@@ -13,7 +13,9 @@ Admission is decided by
 :class:`repro_torch.sched.capacity.ExpertCapacityProvider`; the
 dispatch/FFN/combine mechanics are in
 :mod:`repro_torch.kernels.moe_dispatch.ops`, whose SwiGLU expert FFN
-runs the grouped-matmul kernel by default.
+runs the grouped-matmul kernel by default.  A config with
+``expert_parallel`` under a mesh whose expert axis divides E takes the
+expert-parallel round instead (:mod:`repro_torch.ep`).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import current_mesh, expert_axis_size
 from ..kernels.moe_dispatch.ops import dispatch_combine
 from ..sched import ExpertCapacityProvider
 from .layers import _norm_init
@@ -122,9 +125,24 @@ def moe_apply(p: dict, cfg, x: torch.Tensor,
     T, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     if cfg.expert_parallel:
-        raise NotImplementedError(
-            "expert-parallel MoE dispatch is not ported yet "
-            "(ROADMAP Queue 1 item 11: distribution and EP)")
+        # Expert-parallel all-to-all dispatch (repro_torch.ep): taken when
+        # the current mesh carves an "expert" axis larger than 1 whose size
+        # divides E.  A token count not divisible by S is zero-padded up
+        # to the next multiple and sliced back.
+        mesh = current_mesh()
+        S = expert_axis_size(mesh)
+        if S > 1 and E % S == 0:
+            from ..ep.dispatch import ep_dispatch_combine
+            pad = (-T) % S
+            xp = F.pad(x, (0, 0, 0, pad)) if pad else x
+            y, ep_stats = ep_dispatch_combine(
+                p, cfg, xp, mesh=mesh, use_kernel=use_kernel,
+                return_stats=True)
+            y = (y[:T] if pad else y).reshape(orig_shape)
+            if return_stats:
+                ep_stats["padded_tokens"] = pad
+                return y, ep_stats
+            return y
     C = capacity(T, E, K, cfg.moe_capacity_factor)
     cap = ExpertCapacityProvider(E, C)
     gates, ids, probs = route(x, p["router"], K)

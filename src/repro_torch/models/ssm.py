@@ -6,12 +6,13 @@ across chunks with ``lax.scan``; here every chunk goes to the selective
 scan kernel (``kernels/ssm_scan``), which takes the carried state as
 ``h0`` and returns the next one.  The reference's tests hold its chunked
 scan equal to the Pallas kernel.  ``(dA, dBx, C)`` — ``(B, chunk, Di, N)``
-fp32, 2·N× the activation size — are still built one chunk at a time, so
-the forward's working set is the reference's; in training the chunks
+fp32, 2·N× the activation size — are built one chunk at a time, so the
+forward's working set is the reference's; in training the chunks
 differentiate end to end through the kernel's backward (the gradient of
-each chunk's last state flows into the previous chunk), and autograd keeps
-every chunk's ``dA`` and ``dBx`` where the reference rematerialises them.
-Decode updates the layer's ``conv``/``h`` cache IN PLACE.
+each chunk's last state flows into the previous chunk), and each chunk is
+rematerialised as the reference's ``@jax.checkpoint`` ``chunk_body`` is:
+autograd keeps the chunk's input and carried state, never its ``dA`` and
+``dBx``.  Decode updates the layer's ``conv``/``h`` cache IN PLACE.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.ssm_scan.ops import ssm_scan_op
 from .layers import _norm_init, dense_apply, dense_init
@@ -88,11 +90,20 @@ def ssm_scan_chunked(p: dict, cfg, x: torch.Tensor,
     if L % chunk:
         raise ValueError(f"sequence length {L} is not a multiple of the "
                          f"scan chunk {chunk}")
+
+    def chunk_body(x_c, h):
+        dA, dBx, Cc = _ssm_params(p, cfg, x_c)
+        return ssm_scan_op(dA, dBx, Cc.contiguous(), h)
+
+    body = chunk_body
+    if torch.is_grad_enabled():
+        # the reference checkpoints its chunk body whatever ``remat`` says
+        def body(x_c, h):
+            return checkpoint(chunk_body, x_c, h, use_reentrant=False)
     h = None
     ys = []
     for c0 in range(0, L, chunk):
-        dA, dBx, Cc = _ssm_params(p, cfg, x[:, c0:c0 + chunk])
-        y, h = ssm_scan_op(dA, dBx, Cc.contiguous(), h)
+        y, h = body(x[:, c0:c0 + chunk], h)
         ys.append(y)
     return torch.cat(ys, dim=1) + x.float() * p["D"]
 

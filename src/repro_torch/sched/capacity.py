@@ -117,7 +117,8 @@ class ExpertCapacityProvider:
         planner consumes both sides of this split)."""
         import torch
 
-        return torch.clamp(self.slots_per_expert - load, min=0)
+        return torch.clamp(torch.as_tensor(self.slots_per_expert - load),
+                           min=0)
 
     def overflow(self, load):
         """Per-expert dropped count: the positive part of
@@ -128,7 +129,8 @@ class ExpertCapacityProvider:
         when the total load exceeds :meth:`total` capacity."""
         import torch
 
-        return torch.clamp(load - self.slots_per_expert, min=0)
+        return torch.clamp(torch.as_tensor(load - self.slots_per_expert),
+                           min=0)
 
 
 class SlotCapacity:

@@ -10,8 +10,11 @@ parameters, moments and master weights IN PLACE into the tensors it is
 given and returns them: a functional update would hold two copies of the
 optimizer state at once (another 16.6 GB for granite-moe-1b-a400m's 1.39 B
 parameters).  Nothing leaves the device: the guard is a ``torch.where``,
-never a host branch.  The state shards like the params once the port has a
-mesh (ROADMAP Queue 1 item 11); until then it lives whole on one device.
+never a host branch.  Under the ``afe`` policies on a mesh the fp32
+master, m and v are this rank's FSDP pieces
+(:class:`~repro_torch.distributed.sharding.FsdpLayout`), and the global
+norm all-reduces its per-leaf sums of squares across the shards before
+clipping, so every rank clips (and guards) alike.
 """
 
 from __future__ import annotations
@@ -47,19 +50,22 @@ def opt_state_shapes(param_shapes: dict, ocfg: AdamWConfig) -> dict:
     return out
 
 
-def init_opt_state(params: dict, ocfg: AdamWConfig) -> dict:
+def init_opt_state(params: dict, ocfg: AdamWConfig, layout=None) -> dict:
     """Zero fp32 moments, step 0 (int32) and, with ``master_fp32``, fp32
     copies of the params (copies even where the params are fp32: the
-    update writes both in place)."""
+    update writes both in place).  With an FSDP ``layout`` (the train
+    step's ``step.layout``) each sharded leaf's moments and master are
+    this rank's piece."""
     dev = tree_leaves(params)[0].device
-    out = {"m": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                               device=p.device), params),
-           "v": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                               device=p.device), params),
+    masters = tree_map(lambda p: p.detach().to(torch.float32, copy=True),
+                       params)
+    if layout is not None:
+        masters = layout.local_tree(masters)
+    out = {"m": tree_map(torch.zeros_like, masters),
+           "v": tree_map(torch.zeros_like, masters),
            "step": torch.zeros((), dtype=torch.int32, device=dev)}
     if ocfg.master_fp32:
-        out["master"] = tree_map(
-            lambda p: p.detach().to(torch.float32, copy=True), params)
+        out["master"] = masters
     return out
 
 
@@ -68,15 +74,26 @@ def _schedule(step: torch.Tensor, ocfg: AdamWConfig) -> torch.Tensor:
     return ocfg.lr * warm
 
 
-def global_norm(tree) -> torch.Tensor:
-    leaves = tree_leaves(tree)
-    return torch.sqrt(sum(torch.sum(l.float() ** 2) for l in leaves))
+def global_norm(tree, comm=None, sharded=None) -> torch.Tensor:
+    """The L2 norm over every leaf.  With ``comm``, the leaves flagged in
+    ``sharded`` are this rank's pieces: the per-leaf sums of squares are
+    all-reduced in one call (a replicated leaf's counted once, from rank
+    0) and then added in leaf order, as without a mesh."""
+    sums = [torch.sum(l.float() ** 2) for l in tree_leaves(tree)]
+    if comm is not None:
+        mine = torch.tensor([s or comm.rank == 0 for s in sharded],
+                            device=sums[0].device)
+        vec = torch.where(mine, torch.stack(sums), 0.0)
+        sums = list(comm.all_reduce(vec).unbind())
+    return torch.sqrt(sum(sums))
 
 
 @torch.no_grad()
-def adamw_update(params: dict, grads: dict, state: dict, ocfg: AdamWConfig):
+def adamw_update(params: dict, grads: dict, state: dict, ocfg: AdamWConfig,
+                 comm=None, sharded=None):
     """Returns ``(new_params, new_state, metrics)``, written in place into
-    ``params`` and ``state``.
+    ``params`` and ``state``; ``comm`` and ``sharded`` as in
+    :func:`global_norm` (the afe policies' FSDP pieces).
 
     The non-finite-gradient guard is the exception-semantics analogue: a
     bad microbatch must not corrupt the step — every leaf keeps its params,
@@ -85,7 +102,7 @@ def adamw_update(params: dict, grads: dict, state: dict, ocfg: AdamWConfig):
     """
     step = state["step"] + 1
     lr = _schedule(step, ocfg)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, comm, sharded)
     finite = torch.isfinite(gnorm)
     clip = torch.where(gnorm > ocfg.grad_clip,
                        ocfg.grad_clip / torch.clamp(gnorm, min=1e-9),

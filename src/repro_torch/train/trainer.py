@@ -20,8 +20,8 @@ one device):
   hardware this feeds the reshard/hot-spare controller; here it drives
   the metric surface the tests assert on);
 * **restart on another device** — restore() places the tensors on the
-  device of this run (the mesh resharding of the reference waits for
-  ROADMAP Queue 1 item 11);
+  device of this run; under a mesh every rank saves and restores its own
+  shard files (the afe policies' optimizer state as FSDP pieces);
 * **non-finite-grad guard** — the optimizer skips bad steps atomically
   (the paper's exception semantics: a failure inside the step must not
   poison the join).
@@ -110,6 +110,8 @@ def run_training(cfg: ModelConfig, shape: ShapeConfig,
     report = TrainReport()
 
     step_fn, _ = build_train_step(cfg, shape, scfg, ocfg)
+    splits = step_fn.layout.splits(MDL.param_shapes(cfg)) \
+        if step_fn.layout is not None else None
     sched_counts = step_fn.sched_counts
     eval_fn = build_eval_loss(cfg, scfg) if eval_loss_hook else None
 
@@ -139,7 +141,7 @@ def run_training(cfg: ModelConfig, shape: ShapeConfig,
         params = MDL.init_params(
             cfg, torch.Generator(device=dev).manual_seed(tcfg.seed),
             device=dev)
-        opt_state = init_opt_state(params, ocfg)
+        opt_state = init_opt_state(params, ocfg, layout=step_fn.layout)
 
     times: list = []
     try:
@@ -201,7 +203,8 @@ def run_training(cfg: ModelConfig, shape: ShapeConfig,
                                     if obs.enabled() else None):
                     mgr.save(step + 1,
                              {"params": params, "opt": opt_state},
-                             blocking=(step + 1 == tcfg.steps))
+                             blocking=(step + 1 == tcfg.steps),
+                             splits=splits)
             elif mgr.pending:
                 # the previous step's save overlapped this step's compute;
                 # join + publish now so the durability gap is one step,

@@ -723,3 +723,136 @@ def test_whisper_full_width_decode_matches_forward(cuda):
     dec = torch.stack(outs, dim=1)
     torch.testing.assert_close(dec, full, atol=1e-4, rtol=1e-4)
     assert torch.equal(dec.argmax(-1), full.argmax(-1))
+
+
+# ---------------------------------------------------------------------------
+# remat, the policies' collectives and the EP round at world size 1 (NCCL)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "hymba-1.5b"])
+def test_remat_gradients_equal_on_card(cuda, arch):
+    """SMOKE widths, fp32: the gradients with ``remat`` equal those
+    without (the kernels' forwards run again in the backward and must
+    give the same values), and every forward kernel launches twice per
+    layer with ``remat`` (the scan three times per chunk), once without
+    (the scan twice: its chunk is checkpointed whatever ``remat`` says);
+    each backward kernel once."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    params = TM.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(0), device=cuda)
+    toks = torch.tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab, size=(2, 33)), device=cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    grads, launches = {}, {}
+    for remat in (False, True):
+        p = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                     params)
+        n0 = (FA.launches, MG.launches, SS.launches)
+        TM.loss_fn(p, cfg, batch, remat=remat, ssm_chunk=16).backward()
+        torch.cuda.synchronize()
+        launches[remat] = (FA.launches - n0[0], MG.launches - n0[1],
+                           SS.launches - n0[2])
+        grads[remat] = [t.grad for t in tree_leaves(p)]
+    worst = max(float((a - b).abs().max())
+                for a, b in zip(grads[True], grads[False]))
+    assert worst <= 1e-6
+    L = cfg.n_layers
+    attn, moe = (L if cfg.family != "ssm" else 0), (L if cfg.n_experts else 0)
+    chunks = L * 2 if cfg.family in ("ssm", "hybrid") else 0
+    assert launches[False] == (attn, moe, 2 * chunks)
+    assert launches[True] == (2 * attn, 2 * moe, 3 * chunks)
+
+
+@pytest.fixture(scope="module")
+def nccl_one(tmp_path_factory):
+    """A one-rank NCCL process group for the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import torch.distributed as dist
+
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    yield
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("policy", ["unopt", "lc", "afe", "afe_bucket"])
+def test_policies_world_size_one_bitwise_on_card(cuda, nccl_one, policy):
+    """granite-moe SMOKE, fp32, two AdamW steps on a ``(data 1, model 1)``
+    NCCL mesh: params bitwise equal to the same steps without a mesh (each
+    collective of one rank is a copy; deterministic algorithms, or the
+    embedding gradient's scatter-add sums in another order each run), and
+    the step's collective counts those of the param tree."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.device import parity_mode
+    from repro_torch.distributed.sharding import mesh_context
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.train import optimizer as TO
+    from repro_torch.train import train_step as TT
+
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m", smoke=True),
+                              dtype="float32")
+    shape = ShapeConfig("t", 32, 4, "train", microbatches=2)
+    ocfg = TO.AdamWConfig(lr=1e-3, warmup_steps=1)
+    toks = torch.tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab, size=(4, 33)), device=cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+    parity_mode(deterministic=True)
+    try:
+        for mesh in (None, make_test_mesh(data=1, model=1)):
+            with mesh_context(mesh):
+                params = TM.init_params(cfg, torch.Generator(device="cuda")
+                                        .manual_seed(0), device=cuda)
+                step, _ = TT.build_train_step(
+                    cfg, shape, TT.StepConfig(policy=policy), ocfg)
+                opt = TO.init_opt_state(params, ocfg, layout=step.layout)
+                for _ in range(2):
+                    params, opt, m = step(params, opt, batch)
+            torch.cuda.synchronize()
+            out[mesh is None] = (tree_leaves(params), m["collectives"])
+    finally:
+        parity_mode(deterministic=False)
+    for a, b in zip(out[True][0], out[False][0]):
+        assert torch.equal(a, b)
+    n = len(out[True][0])
+    counts = out[False][1]
+    if policy == "unopt":
+        assert counts["all_reduce"] == 2 * n
+    elif policy == "lc":
+        assert counts["all_reduce"] == n
+    else:
+        assert counts["reduce_scatter"] > 0 and counts["all_gather"] > 0
+        assert counts["all_to_all"] == counts["send_recv"] == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ep_round_world_size_one_matches_moe_apply(cuda, nccl_one, dtype):
+    """granite-moe SMOKE at ample capacity: ``ep_round`` on a one-rank
+    expert axis equals the single-host ``moe_apply`` (fp32 1e-5, bf16 the
+    ``moe_gmm`` tolerance), with one join per round and one ``moe_gmm``
+    launch."""
+    from repro_torch.ep.dispatch import ep_round
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import moe as M
+    from repro_torch.sched import SchedTelemetry
+
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m", smoke=True),
+                              expert_parallel=True, dtype=dtype,
+                              moe_capacity_factor=4.0)
+    dt = getattr(torch, dtype)
+    p = M.moe_init(torch.Generator(device="cuda").manual_seed(0), cfg, dt)
+    x = _t(np.random.default_rng(6).normal(size=(64, cfg.d_model)), dt, cuda)
+    want = M.moe_apply(p, dataclasses.replace(cfg, expert_parallel=False), x)
+    mesh = make_test_mesh(data=1, model=1, expert=1)
+    tel = SchedTelemetry()
+    n0 = MG.launches
+    got, st = ep_round(p, cfg, x, mesh=mesh, telemetry=tel)
+    assert MG.launches == n0 + 1
+    assert st["joins"] == st["rounds"] == tel.joins == 1
+    assert st["sent"] == st["received"] == st["spawns"] == 64 * cfg.top_k
+    tol = 1e-5 if dt == torch.float32 else 5 * 2e-2
+    assert float((got.float() - want.float()).abs().max()) <= \
+        tol * max(1.0, float(want.float().abs().max()))

@@ -4,8 +4,9 @@ fallback.
 * Every module of ``src/repro_torch`` and ``chip_smoke.py`` imports
   neither ``jax``/``jaxlib`` nor ``repro``/``repro.*`` (checked with
   ``ast``, so nothing needs to be imported to find out).
-* The copied host modules (``sched/``, ``obs/``, ``data/pool.py`` and
-  ``data/pipeline.py``) are byte-identical to the reference's, except
+* The copied host modules (``sched/``, ``obs/``, ``core/``,
+  ``data/pool.py``, ``data/pipeline.py`` and ``ep/plan.py``) are
+  byte-identical to the reference's, except
   ``ExpertCapacityProvider.residual/overflow``.
 * Entry points called without ``device=`` ask for the card and raise
   where there is none; kernel wrappers given CPU tensors run their plain
@@ -44,9 +45,9 @@ def test_module_imports_no_jax_and_no_reference(rel):
 
 
 HOST_COPIES = sorted([str(p.relative_to(PORT))
-                      for sub in ("sched", "obs")
+                      for sub in ("sched", "obs", "core")
                       for p in (PORT / sub).glob("*.py")]
-                     + ["data/pool.py", "data/pipeline.py"])
+                     + ["data/pool.py", "data/pipeline.py", "ep/plan.py"])
 
 
 @pytest.mark.parametrize("rel", HOST_COPIES)
@@ -54,9 +55,12 @@ def test_host_modules_are_verbatim_copies(rel):
     port, ref = (PORT / rel).read_text(), (REF / rel).read_text()
     if rel == "sched/capacity.py":
         port = port.replace("import torch", "import jax.numpy as jnp") \
-            .replace("torch.clamp(self.slots_per_expert - load, min=0)",
+            .replace("torch.clamp(torch.as_tensor(self.slots_per_expert - "
+                     "load),\n                           min=0)",
                      "jnp.maximum(self.slots_per_expert - load, 0)") \
-            .replace("torch.clamp(load - self.slots_per_expert, min=0)",
+            .replace("torch.clamp(torch.as_tensor(load - "
+                     "self.slots_per_expert),\n                           "
+                     "min=0)",
                      "jnp.maximum(load - self.slots_per_expert, 0)")
     assert port == ref
 
