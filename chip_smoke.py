@@ -147,10 +147,23 @@ one cross layer, since its ~180 GB of bf16 weights exceed the card):
     ``moe_apply`` (fp32 1e-5, bf16 the ``moe_gmm`` tolerance), one join
     per round, one ``moe_gmm`` launch per round, the round's and
     ``moe_apply``'s times.
+19. ``tp_train``: tensor parallelism on a ``(data 1, model 2)`` mesh,
+    two processes on the one card over gloo, policy ``lc``; first each
+    kernel and backward kernel at one model rank's shapes (granite's H8
+    KV4 attention and E16 C1280 experts, hymba's Di 1600 scan); then fp32
+    2-layer steps (granite with E over the model axis, a granite copy
+    with E 3 whose d_ff goes over it, hymba-1.5b with its 25 heads whole
+    on both ranks) against the one-process step, each rank's shards of
+    the params after the step and of its first moment within 1e-4; and
+    two full-width bf16 granite steps (seq 1024, batch 8 in 2
+    microbatches) within 2e-2 of the one-process steps, per-rank launches
+    exactly ``expected_launches`` of the rank-local config, per-rank peak
+    memory.
 
 Each main-path run (each forward of phases 4, 7, 9, 10, 15 and 16; the
 serve CLI and the batcher run of phase 5 for ``moe_gmm``; the four steps
-of phases 13, 14 and 15 for the backward kernels, and each EP round) zeroes the launch counters
+of phases 13, 14 and 15 for the backward kernels, each EP round, and each
+rank's every step in phase 19) zeroes the launch counters
 just before it and reads them just after; the ``kernels`` line takes ``moe_gmm``'s
 count from the serve CLI, ``ssm_scan``'s from the fp32 falcon-mamba-7b
 forward, ``flash_attention``'s from the bf16 phi3-mini forward,
@@ -845,20 +858,23 @@ def phase_serve(torch, cfg, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def phase_ssm_scan(torch) -> list:
+#: falcon-mamba-7b's launch per 256-token chunk, from a zero and from a
+#: carried state; a whole 2048-token layer; hymba-1.5b's ragged Di
+SSM_SHAPES = (("falcon chunk", 1, 256, 8192, 16, False),
+              ("falcon chunk, carried state", 1, 256, 8192, 16, True),
+              ("falcon 2048-token layer", 1, 2048, 8192, 16, False),
+              ("hymba chunk", 2, 256, 3200, 16, False))
+
+
+def phase_ssm_scan(torch, shapes=SSM_SHAPES) -> list:
+    """``shapes``: (what, B, L, Di, N, with a carried state) rows."""
     from repro_torch.kernels.ssm_scan import ssm_scan as SS
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     tol = 1e-4  # the reference's test_ssm_scan_sweep tolerance
     rows = []
-    # falcon-mamba-7b's launch per 256-token chunk, from a zero and from a
-    # carried state; a whole 2048-token layer; hymba-1.5b's ragged Di
-    for what, B, L, Di, N, with_h0 in (
-            ("falcon chunk", 1, 256, 8192, 16, False),
-            ("falcon chunk, carried state", 1, 256, 8192, 16, True),
-            ("falcon 2048-token layer", 1, 2048, 8192, 16, False),
-            ("hymba chunk", 2, 256, 3200, 16, False)):
+    for what, B, L, Di, N, with_h0 in shapes:
         dA = torch.rand(B, L, Di, N, generator=gen, device="cuda") * 0.5 + 0.5
         dBx = torch.randn(B, L, Di, N, generator=gen, device="cuda") * 0.1
         C = torch.randn(B, L, N, generator=gen, device="cuda")
@@ -888,14 +904,21 @@ def phase_ssm_scan(torch) -> list:
     return rows
 
 
-def phase_ssm_scan_bwd(torch) -> list:
+SSM_BWD_SHAPES = (("hymba chunk", 1, 256, 3200, 16, False),
+                  ("hymba chunk, carried state", 1, 256, 3200, 16, True),
+                  ("falcon chunk", 1, 256, 8192, 16, False),
+                  ("falcon chunk, carried state", 1, 256, 8192, 16, True))
+
+
+def phase_ssm_scan_bwd(torch, shapes=SSM_BWD_SHAPES) -> list:
     """The backward kernel of ``ssm_scan`` (d_dA, d_dBx, dC, dh0) against
     the plain backward ``ssm_scan_bwd_ref`` and against autograd through
     the plain scan, each output within 1e-5 × its largest reference value,
-    two calls bitwise equal, at the main path's chunks: hymba-1.5b's (B 1,
-    L 256, Di 3200) and falcon-mamba-7b's (Di 8192), from a zero state
-    with no ``dh_last`` (a sequence's only chunk) and from a carried state
-    with one (the middle chunks)."""
+    two calls bitwise equal, at the main path's chunks (``shapes``: what,
+    B, L, Di, N, carried): hymba-1.5b's (B 1, L 256, Di 3200) and
+    falcon-mamba-7b's (Di 8192), from a zero state with no ``dh_last`` (a
+    sequence's only chunk) and from a carried state with one (the middle
+    chunks)."""
     from repro_torch.kernels.ssm_scan import ssm_scan as SS
     from repro_torch.kernels.ssm_scan.ref import (ssm_scan_bwd_ref,
                                                   ssm_scan_ref)
@@ -904,11 +927,7 @@ def phase_ssm_scan_bwd(torch) -> list:
     tol = 1e-5
     names = ("d_dA", "d_dBx", "dC", "dh0")
     rows = []
-    for what, B, L, Di, N, carried in (
-            ("hymba chunk", 1, 256, 3200, 16, False),
-            ("hymba chunk, carried state", 1, 256, 3200, 16, True),
-            ("falcon chunk", 1, 256, 8192, 16, False),
-            ("falcon chunk, carried state", 1, 256, 8192, 16, True)):
+    for what, B, L, Di, N, carried in shapes:
         dA = torch.rand(B, L, Di, N, generator=gen, device="cuda") * 0.5 + 0.5
         dBx = torch.randn(B, L, Di, N, generator=gen, device="cuda") * 0.1
         C = torch.randn(B, L, N, generator=gen, device="cuda")
@@ -1599,6 +1618,291 @@ def phase_ep_round(torch, cfg, card: str, T: int = 1024) -> list:
 
 
 # ---------------------------------------------------------------------------
+# Phase 19: tensor parallelism, two model ranks on the one card
+# ---------------------------------------------------------------------------
+
+
+def tp_local_config(cfg, m: int):
+    """The config whose shapes one of ``m`` model ranks computes with: the
+    query and KV heads over ``m`` where they split (else whole), E over
+    ``m`` where it divides (else d_ff), the MLP's d_ff, d_inner."""
+    from repro_torch.distributed.sharding import attn_split
+
+    rep = {}
+    if cfg.n_heads and attn_split(cfg, m):
+        rep.update(n_heads=cfg.n_heads // m, d_head=cfg.head_dim,
+                   n_kv_heads=max(1, cfg.n_kv_heads // m))
+    if cfg.n_experts and cfg.n_experts % m == 0:
+        rep["n_experts"] = cfg.n_experts // m
+    elif cfg.d_ff:
+        rep["d_ff"] = cfg.d_ff // m
+    if cfg.d_inner:
+        rep["d_inner"] = cfg.d_inner // m
+    return dataclasses.replace(cfg, **rep)
+
+
+def tp_step_setup(torch, cfg, mesh, *, seq_len: int, global_batch: int,
+                  microbatches: int, lr: float, ssm_chunk: int = 256,
+                  dev: str = "cuda"):
+    """``build_train_step`` under ``mesh`` (None: one process) with policy
+    ``lc`` (every collective an all-reduce: gloo carries only those for
+    CUDA tensors), sched policy ``dlbc`` and ``remat``; whole weights from
+    ``SEED``, cut to this rank's compute shards (``step.local_state``);
+    AdamW at ``lr``, warmup 1; one batch from the same generator.  Returns
+    (step, params, opt, batch)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import mesh_context
+    from repro_torch.models import model as TM
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import StepConfig, build_train_step
+
+    shape = ShapeConfig("train", seq_len, global_batch, "train",
+                        microbatches=microbatches)
+    ocfg = AdamWConfig(lr=lr, warmup_steps=1)
+    with mesh_context(mesh):
+        step, _ = build_train_step(cfg, shape, StepConfig(
+            policy="lc", sched_policy="dlbc", ssm_chunk=ssm_chunk), ocfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = step.local_state(TM.init_params(cfg, gen, device=dev))
+    opt = init_opt_state(params, ocfg)
+    toks = torch.randint(0, cfg.vocab, (global_batch, seq_len + 1),
+                         generator=gen, device=dev)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous(),
+             **ctx_input(torch, cfg, global_batch, gen, device=dev)}
+    return step, params, opt, batch
+
+
+def tp_steps(torch, step, params, opt, batch, steps: int,
+             dev: str = "cuda") -> dict:
+    """``steps`` steps on one batch: losses, gradient norms, skipped steps,
+    host-clock step ms (synchronised) and, per step, the kernel launches
+    and the model-axis collectives."""
+    out = {"losses": [], "grad_norms": [], "skipped": [], "step_ms": [],
+           "launches": [], "tp_collectives": []}
+    for _ in range(steps):
+        zero_counters()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["launches"].append(read_counters())
+        out["losses"].append(float(m["loss"]))
+        out["grad_norms"].append(float(m["grad_norm"]))
+        out["skipped"].append(int(m["nonfinite_skipped"]))
+        out["tp_collectives"].append(m["tp_collectives"])
+    return out
+
+
+def tp_fp32_check(torch, cfg, mesh, rank: int, S: int, ssm_chunk: int,
+                  dev: str = "cuda") -> dict:
+    """``cfg`` (fp32, 2 layers) at B 2 x ``S``: one step on the model
+    axis against the one-process step from the same weights and batch,
+    this rank's shards compared: the params after the step, the first
+    moment ``m`` (0.1 x the clipped gradient) within 1e-4 of each leaf's
+    largest value, the gradient norm, and the step's kernel launches."""
+    from repro_torch.distributed.sharding import tp_local_params
+    from repro_torch.tree import tree_leaves
+
+    kw = dict(seq_len=S, global_batch=2, microbatches=1, lr=2e-5,
+              ssm_chunk=ssm_chunk, dev=dev)
+    step, p, o, batch = tp_step_setup(torch, cfg, None, **kw)
+    p, o, m = step(p, o, batch)
+    want = [tree_leaves(tp_local_params(t, cfg, rank, 2))
+            for t in (p, o["m"])]
+    one = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+    del step, p, o, m
+    step, p, o, batch = tp_step_setup(torch, cfg, mesh, **kw)
+    got = tp_steps(torch, step, p, o, batch, 1, dev)
+    param_err = max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(tree_leaves(p), want[0]))
+    grad_err = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                    1e-30)
+                   for a, b in zip(tree_leaves(o["m"]), want[1]))
+    return {"arch": cfg.name, "n_experts": cfg.n_experts,
+            "n_heads": cfg.n_heads, "S": S, "ssm_chunk": ssm_chunk,
+            "loss": got["losses"][0], "one_process_loss": one["loss"],
+            "grad_norm": got["grad_norms"][0],
+            "one_process_grad_norm": one["grad_norm"],
+            "param_max_abs_err": param_err,
+            "m_max_err_over_max": grad_err,
+            "launches": got["launches"][0],
+            "tp_collectives": got["tp_collectives"][0]}
+
+
+def tp_rank_run(torch, rank: int, plan: dict) -> dict:
+    """One model rank of :func:`phase_tp_train`: the fp32 checks, then the
+    full-width bf16 steps, on a ``(data 1, model 2)`` mesh."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+
+    dev = plan["dev"]
+    mesh = make_test_mesh(data=1, model=2, device_type="cpu")
+    out = {"fp32": []}
+    for arch, rep, S, chunk in plan["fp32"]:
+        c = dataclasses.replace(get_config(arch, smoke=plan["smoke"]),
+                                dtype="float32", n_layers=2, **rep)
+        out["fp32"].append(tp_fp32_check(torch, c, mesh, rank, S, chunk,
+                                         dev))
+    arch, steps, S, B, mb = plan["bf16"]
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    step, p, o, batch = tp_step_setup(
+        torch, get_config(arch, smoke=plan["smoke"]), mesh, seq_len=S,
+        global_batch=B, microbatches=mb, lr=1e-4, dev=dev)
+    out["bf16"] = tp_steps(torch, step, p, o, batch, steps, dev)
+    if dev == "cuda":
+        out["bf16"]["max_memory_allocated_gb"] = \
+            torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def tp_rank(rank: int, store: str, plan: dict, q) -> None:
+    """A spawned rank: a gloo process group (NCCL refuses two ranks on one
+    device; gloo all-reduces CUDA tensors through host memory), then
+    :func:`tp_rank_run`; the result or the traceback goes on ``q``."""
+    import traceback
+
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    try:
+        if plan["dev"] == "cuda":
+            torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                rank=rank, world_size=2)
+        q.put((rank, tp_rank_run(torch, rank, plan)))
+    except BaseException:
+        q.put((rank, {"error": traceback.format_exc()}))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def tp_spawn(plan: dict) -> dict:
+    """Run :func:`tp_rank` in two spawned processes; their results by rank.
+    Raises with the tracebacks if a rank fails; never leaves one running."""
+    import multiprocessing as mp
+    import shutil
+
+    store = ROOT / "build" / f"chip_smoke_tp_{os.getpid()}"
+    shutil.rmtree(store, ignore_errors=True)
+    store.mkdir(parents=True)
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=tp_rank, args=(r, str(store / "store"),
+                                               plan, q)) for r in range(2)]
+    for pr in procs:
+        pr.start()
+    got = {}
+    try:
+        while len(got) < 2:
+            r, res = q.get(timeout=600)
+            got[r] = res
+            if "error" in res:
+                break
+    finally:
+        for pr in procs:
+            pr.join(30)
+            if pr.is_alive():
+                pr.kill()
+                pr.join()
+        shutil.rmtree(store, ignore_errors=True)
+    errors = [f"rank {r}:\n{res['error']}" for r, res in got.items()
+              if "error" in res]
+    if errors:
+        raise AssertionError("tp_train: " + "".join(errors))
+    return got
+
+
+def phase_tp_train(torch, cfg, hymba, card: str) -> list:
+    """Tensor parallelism on a ``(data 1, model 2)`` mesh: two processes on
+    the one card, gloo, policy ``lc`` (:func:`tp_step_setup`).
+
+    * fp32, 2 layers, TF32 off (:func:`tp_fp32_check`), each rank against
+      the one-process step on its shards: granite with E over the model
+      axis (E 16 per rank), a granite copy with E = 3 (top-2), whose d_ff
+      goes over it instead (f 256), and hymba-1.5b (Di 1600 per rank in
+      two 128-token scan chunks; its 25 heads do not split over 2, so its
+      attention runs whole on both ranks): params within 1e-4, ``m``
+      within 1e-4 of each leaf's largest value, the gradient norm within
+      1e-4 relative, launches exactly :func:`expected_launches` of the
+      rank-local config.
+    * granite at full width (bf16, 24 layers), seq 1024, global batch 8 in
+      2 microbatches, 2 AdamW steps: each step's loss and gradient norm
+      within 2e-2 relative of the one-process steps (run here first, same
+      seed), each rank's launches per step exactly ``expected_launches``
+      of the rank-local config, per-rank peak memory.  Step times include
+      gloo's host staging of every all-reduce (nothing here measures
+      NVLink)."""
+    import gc
+
+    torch.cuda.reset_peak_memory_stats()
+    one = tp_steps(torch, *tp_step_setup(
+        torch, cfg, None, seq_len=1024, global_batch=8, microbatches=2,
+        lr=1e-4), 2)
+    one["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    plan = {"dev": "cuda", "smoke": False,
+            "fp32": [(cfg.name, {}, 256, 256),
+                     (cfg.name, {"n_experts": 3, "top_k": 2}, 256, 256),
+                     (hymba.name, {}, 256, 128)],
+            "bf16": (cfg.name, 2, 1024, 8, 2)}
+    got = tp_spawn(plan)
+    rows, bad = [], []
+    for i, (arch, rep, S, chunk) in enumerate(plan["fp32"]):
+        local = tp_local_config(dataclasses.replace(
+            cfg if arch == cfg.name else hymba, n_layers=2, **rep), 2)
+        expect = expected_launches(local, S, 1, chunk)
+        for r in range(2):
+            row = {"phase": "tp_train", "check": "fp32", "rank": r,
+                   "card": card, **got[r]["fp32"][i],
+                   "expected_launches": expect}
+            emit(row)
+            rows.append(row)
+            gn, g1 = row["grad_norm"], row["one_process_grad_norm"]
+            if row["param_max_abs_err"] > 1e-4 or \
+                    row["m_max_err_over_max"] > 1e-4 or \
+                    abs(gn - g1) > 1e-4 * g1 or row["launches"] != expect:
+                bad.append(f"fp32 {arch} {rep} rank {r}")
+    local = tp_local_config(cfg, 2)
+    expect = expected_launches(local, 1024, 2)
+    for r in range(2):
+        b = got[r]["bf16"]
+        row = {"phase": "tp_train", "check": "bf16", "rank": r,
+               "card": card, "arch": cfg.name, "mesh": "data 1, model 2",
+               "backend": "gloo", "policy": "lc", "seq_len": 1024,
+               "global_batch": 8, "microbatches": 2,
+               "local_shapes": {"n_heads": local.n_heads,
+                                "n_kv_heads": local.n_kv_heads,
+                                "n_experts": local.n_experts},
+               **b, "one_process_losses": one["losses"],
+               "one_process_grad_norms": one["grad_norms"],
+               "one_process_step_ms": one["step_ms"],
+               "one_process_max_memory_allocated_gb":
+                   one["max_memory_allocated_gb"],
+               "expected_launches_per_step": expect}
+        emit(row)
+        rows.append(row)
+        for x, y in zip(b["losses"] + b["grad_norms"],
+                        one["losses"] + one["grad_norms"]):
+            if not math.isfinite(x) or abs(x - y) > 2e-2 * abs(y):
+                bad.append(f"bf16 rank {r}: {x} against {y}")
+        if sum(b["skipped"]) or any(n != expect for n in b["launches"]):
+            bad.append(f"bf16 rank {r}: skipped {b['skipped']}, launches "
+                       f"{b['launches']}")
+    if bad:
+        raise AssertionError(f"tp_train: {bad}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # Phases 15-16: the encoder-decoder and vision-language families
 # ---------------------------------------------------------------------------
 
@@ -1796,6 +2100,23 @@ def main() -> int:
     whisper_train = timed(phase_train, torch, whisper, smi, 4, 448, 8, 2)
     timed(phase_fp32_forward, torch, vlm, 64, "decode")
     timed(phase_wide_bf16, torch, vlm, smi, 512)
+    # tensor parallelism (phase 19): the kernels at one model rank's shapes
+    # of 2 (granite: H8 KV4, E16 at a training microbatch's C1280; hymba:
+    # Di 1600), then two ranks training on the one card
+    g2, h2 = tp_local_config(cfg, 2), tp_local_config(hymba, 2)
+    rank2 = "model rank of 2"
+    timed(phase_flash, torch, (A(g2, 1024, "bfloat16", B=4, what=rank2),))
+    timed(phase_flash_bwd, torch, (A(g2, 1024, "bfloat16", B=4,
+                                     what=rank2),))
+    timed(phase_moe_gmm, torch, g2, (("bfloat16", (1280,)),))
+    timed(phase_moe_gmm_bwd, torch, g2, (("bfloat16", (1280,)),))
+    timed(phase_ssm_scan, torch, (
+        (f"hymba chunk, {rank2}, carried state", 1, 256, h2.d_inner,
+         h2.ssm_state, True),))
+    timed(phase_ssm_scan_bwd, torch, (
+        (f"hymba chunk, {rank2}, carried state", 1, 256, h2.d_inner,
+         h2.ssm_state, True),))
+    timed(phase_tp_train, torch, cfg, hymba, smi)
 
     moe_main = next(r for r in moe_rows
                     if r["C"] == 8 and r["dtype"] == "bfloat16")

@@ -11,7 +11,8 @@ is accepted, so this module imports neither JAX nor the reference.
 bf16 travels as its raw 16 bits: numpy's bf16 is the ``ml_dtypes``
 extension type, which ``torch.from_numpy`` rejects, so the bits go
 through a ``uint16``/``int16`` view in both directions and the round
-trip is bitwise.
+trip is bitwise.  :func:`to_torch_tp` takes a reference param tree on to
+one model rank's compute shards (tensor parallelism).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .distributed.sharding import tp_local_params
 
 
 def _np_bf16_dtype() -> np.dtype:
@@ -72,3 +74,10 @@ def to_numpy(tree: Any):
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_numpy(v) for v in tree)
     return leaf_to_numpy(tree)
+
+
+def to_torch_tp(tree: Any, cfg, rank: int, size: int,
+                device: Optional[Union[str, torch.device]] = None):
+    """A reference param tree → the port's tensors → model rank ``rank`` of
+    ``size``'s compute shards (``distributed.sharding.tp_local_params``)."""
+    return tp_local_params(to_torch(tree, device), cfg, rank, size)

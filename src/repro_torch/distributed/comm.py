@@ -1,16 +1,31 @@
-"""Counted collectives over one process group.
+"""Counted collectives over one process group, and the tensor-parallel
+region's two autograd functions.
 
 The reference counts its collectives in the compiled HLO
 (``roofline.analysis.collective_stats``); the port issues them eagerly, so
 it counts them where it issues them: every method of :class:`Collectives`
 makes one ``torch.distributed`` call and adds one to its kind's count.
-A train step makes one :class:`Collectives` per call and returns its
-``counts`` in the step's metrics; the EP round makes one per round.
+A train step makes one :class:`Collectives` per call over the data ranks
+and returns its ``counts`` in the step's metrics, and one over the model
+ranks (:func:`model_comm`) whose counts it returns apart, as
+``metrics["tp_collectives"]``; the EP round makes one per round.
 
-All reductions are sums (gloo has no average); callers divide.
+Tensor parallelism (the ``"model"`` mesh axis) is Megatron's: the
+activations are whole on every model rank, a column-parallel matmul takes
+them through :func:`copy_to_tp` (identity forward, all-reduce of the
+input's gradient backward) and a row-parallel matmul's partial sums leave
+through :func:`reduce_from_tp` (all-reduce forward, identity backward).
+Each function keeps its :class:`Collectives` in the autograd context, so
+a backward (on the autograd engine's thread) and a rematerialised forward
+issue and count through the same object as the forward did.
+
+All reductions are sums unless ``op="max"`` (gloo has no average);
+callers divide.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.distributed as dist
@@ -19,21 +34,24 @@ KINDS = ("all_reduce", "reduce_scatter", "all_gather", "all_to_all",
          "send_recv")
 
 
-def mesh_group(mesh, axis=None):
-    """The process group of ``axis`` of ``mesh``, or with ``axis=None``
-    of the whole mesh: its one axis larger than 1, or the default group
-    when the mesh spans the world."""
-    if axis is not None:
-        return mesh.get_group(axis)
-    names = mesh.mesh_dim_names
-    wide = [a for a, n in zip(names, tuple(mesh.shape)) if n > 1]
+def mesh_group(mesh, axes):
+    """The process group over the mesh axes ``axes`` (one name or a tuple,
+    e.g. the data-parallel ``("pod", "data")``): the group of the one such
+    axis larger than 1 (the first present one when none is), or the
+    default group when several are wide and together span the world."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    sizes = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+    present = [a for a in axes if a in sizes]
+    wide = [a for a in present if sizes[a] > 1]
     if len(wide) <= 1:
-        return mesh.get_group(wide[0] if wide else names[0])
-    if sorted(mesh.mesh.flatten().tolist()) != \
-            list(range(dist.get_world_size())):
+        return mesh.get_group(wide[0] if wide else present[0])
+    n = 1
+    for a in wide:
+        n *= sizes[a]
+    if n != dist.get_world_size():
         raise NotImplementedError(
-            f"a group over the mesh axes {wide} of a mesh that does not "
-            "span the world")
+            f"a group over the mesh axes {wide}, which do not span the "
+            "world")
     return dist.group.WORLD
 
 
@@ -46,9 +64,11 @@ class Collectives:
         self.rank = dist.get_rank(self.group)
         self.counts = dict.fromkeys(KINDS, 0)
 
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum ``t`` over the group, in place; returns ``t``."""
-        dist.all_reduce(t, group=self.group)
+    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """Sum (or with ``op="max"`` take the maximum of) ``t`` over the
+        group, in place; returns ``t``."""
+        dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max"
+                        else dist.ReduceOp.SUM, group=self.group)
         self.counts["all_reduce"] += 1
         return t
 
@@ -86,3 +106,86 @@ class Collectives:
         for work in dist.batch_isend_irecv(ops):
             work.wait()
         self.counts["send_recv"] += 1
+
+
+def model_comm(mesh) -> Optional[Collectives]:
+    """A :class:`Collectives` over ``mesh``'s ``"model"`` axis, or None
+    when there is no mesh or its model axis is 1 (no tensor parallelism)."""
+    if mesh is None:
+        return None
+    sizes = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+    if sizes.get("model", 1) <= 1:
+        return None
+    return Collectives(mesh.get_group("model"))
+
+
+# ---------------------------------------------------------------------------
+# The tensor-parallel region (Megatron's f and g)
+# ---------------------------------------------------------------------------
+
+
+class _CopyToTP(torch.autograd.Function):
+    """Identity forward; the gradient summed over the model ranks."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.all_reduce(
+            g.clone(memory_format=torch.contiguous_format)), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """Partial sums summed over the model ranks; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        return tp.all_reduce(x.clone(memory_format=torch.contiguous_format))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ShareKV(torch.autograd.Function):
+    """A weight that several model ranks hold alike (one KV head, read by
+    the query heads of ``m / KV`` ranks): identity forward; backward, each
+    rank's partial gradient summed over the ranks that hold the same head,
+    through one all-reduce of a ``(KV, ...)`` buffer in which every rank
+    fills its head's slot."""
+
+    @staticmethod
+    def forward(ctx, w, tp, head, n_heads):
+        ctx.tp, ctx.head, ctx.n_heads = tp, head, n_heads
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        buf = g.new_zeros((ctx.n_heads, *g.shape))
+        buf[ctx.head] = g
+        return ctx.tp.all_reduce(buf)[ctx.head], None, None, None
+
+
+def copy_to_tp(x: torch.Tensor, tp: Optional[Collectives]) -> torch.Tensor:
+    """Enter the tensor-parallel region (before a column-parallel matmul):
+    ``x`` as it is, its gradient all-reduced over ``tp``'s ranks.  The
+    identity without ``tp``."""
+    return x if tp is None else _CopyToTP.apply(x, tp)
+
+
+def reduce_from_tp(x: torch.Tensor, tp: Optional[Collectives]
+                   ) -> torch.Tensor:
+    """Leave the tensor-parallel region (after a row-parallel matmul):
+    ``x``'s partial sums all-reduced over ``tp``'s ranks, its gradient
+    passed through.  The identity without ``tp``."""
+    return x if tp is None else _ReduceFromTP.apply(x, tp)
+
+
+def share_kv(w: torch.Tensor, tp: Optional[Collectives], head: int,
+             n_heads: int) -> torch.Tensor:
+    """``w``, one KV head's weight that the ranks reading head ``head`` of
+    ``n_heads`` hold alike; its gradient summed over those ranks."""
+    return w if tp is None else _ShareKV.apply(w, tp, head, n_heads)

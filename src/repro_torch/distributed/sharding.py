@@ -24,11 +24,18 @@ Param rules (per tensor role, by pytree path), as in the reference:
 What the port executes: the fsdp axes (``("pod", "data")``) shard the
 batch and, under the ``afe`` policies, the optimizer state
 (:class:`FsdpLayout`, ``train/train_step.py``); the expert axis carries
-the EP round (:mod:`repro_torch.ep`).  The ``"model"`` axis is the
-reference's tensor-parallel GSPMD sharding inside the layers, which needs
-collectives inside attention, MLP and mamba: a mesh whose model axis is
-larger than 1 gets its specs here but raises where it would run
-(:func:`require_executable`; ROADMAP Queue 1, the tensor-parallel item).
+the EP round (:mod:`repro_torch.ep`); the ``"model"`` axis is Megatron
+tensor parallelism inside the layers (:mod:`repro_torch.distributed.comm`'s
+``copy_to_tp`` / ``reduce_from_tp``).  The specs above are the
+reference's *storage* layout and stay as they are; what a model rank
+computes with is its *compute* layout, :func:`tp_local_params`, which
+differs from the specs in three places: mamba's fused ``in_proj`` (a rank
+holds its slice of ``xi`` and of ``z``, not one half of the fused
+columns), the per-channel vectors the specs replicate (``conv_b``, ``D``,
+``dt_proj``'s bias, the MLP's ``b1``: a rank keeps its channels), and GQA
+with fewer KV heads than model ranks (a rank keeps the one KV head its
+query heads read).  Attention whose heads the model axis does not divide
+(hymba-1.5b's 25) runs whole on every rank.
 """
 
 from __future__ import annotations
@@ -97,29 +104,41 @@ def _model_size(mesh) -> int:
     return axis_sizes(mesh).get("model", 1)
 
 
-def require_executable(mesh) -> None:
-    """Raise for a mesh the port cannot run: a ``"model"`` axis larger
-    than 1 is the reference's tensor parallelism inside the layers."""
-    if mesh is not None and _model_size(mesh) > 1:
+def require_executable(mesh, what: str) -> None:
+    """Raise ``NotImplementedError`` for what the port does not run on
+    ``mesh``: ``what="train"`` refuses an expert axis larger than 1 (EP
+    under autograd); ``what="serve"`` (decode and prefill steps, hence the
+    batcher) and ``what="ep"`` (the EP round) refuse a model axis larger
+    than 1 (tensor-parallel serving; experts split over both axes)."""
+    if mesh is None:
+        return
+    if what == "train" and expert_axis_size(mesh) > 1:
         raise NotImplementedError(
-            f"a 'model' (tensor-parallel) mesh axis of size "
-            f"{_model_size(mesh)} is not ported yet: it needs collectives "
-            "inside attention, MLP and mamba (ROADMAP Queue 1: the "
-            "tensor-parallel model axis)")
+            "a train step on a mesh with an expert axis (EP under "
+            "autograd) is not ported yet (ROADMAP Queue 1: EP under "
+            "autograd)")
+    if what in ("serve", "ep") and _model_size(mesh) > 1:
+        raise NotImplementedError(
+            f"a 'model' mesh axis of size {_model_size(mesh)} under "
+            + ("decode_step / prefill_step is not ported yet (ROADMAP "
+               "Queue 1: tensor-parallel serving)" if what == "serve" else
+               "the EP round is not ported yet: its experts would split "
+               "over the expert and the model axes"))
 
 
 def shard_act(x):
-    """The reference's sequence-parallel activation constraint.  Tensors
-    are whole on every rank of a mesh whose model axis is 1, so this is
-    the identity there (and raises on a larger model axis)."""
-    require_executable(current_mesh())
+    """The reference's sequence-parallel activation constraint: the
+    identity.  On a model axis the port keeps activations whole on every
+    model rank (Megatron without sequence parallelism), so a rank holds
+    ``m`` times the reference's sequence-sharded residual stream (ROADMAP
+    Queue 1: sequence-parallel ``shard_act``)."""
     return x
 
 
 def shard_logits(x):
-    """The reference's vocab-over-model logits constraint: the identity on
-    a mesh whose model axis is 1, as :func:`shard_act`."""
-    require_executable(current_mesh())
+    """The reference's vocab-over-model logits constraint: the identity.
+    On a model axis the head is column-parallel, so the logits a rank
+    computes already are its vocab shard."""
     return x
 
 
@@ -334,3 +353,153 @@ def fsdp_layout(params, cfg, rank: int, size: int) -> FsdpLayout:
         return fsdp_dim(node)
 
     return FsdpLayout(dims=walk(specs), rank=rank, size=size)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: one model rank's compute layout
+# ---------------------------------------------------------------------------
+
+
+def model_size(mesh=None) -> int:
+    """The ``"model"`` axis's size under ``mesh`` (default: the current
+    mesh); 1 without a mesh."""
+    mesh = mesh or current_mesh()
+    return 1 if mesh is None else _model_size(mesh)
+
+
+def attn_split(cfg, m: int) -> bool:
+    """Whether attention's heads split over ``m`` model ranks: ``m``
+    divides the query heads and either divides the KV heads or is a
+    multiple of them (then each rank keeps the one KV head its query
+    heads read).  Otherwise every rank runs the layer's attention whole."""
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    return H % m == 0 and (KV % m == 0 or m % KV == 0)
+
+
+def _tp_rule(path: str, cfg, m: int) -> tuple:
+    """How one leaf (``path``: '/'-joined keys) lies over ``m`` model
+    ranks, on its trailing dims (leading stacked-layer dims are never
+    split): ``("rep",)`` whole on every rank; ``("split", dim, groups)``
+    ``dim`` read as ``(groups, m, n / (groups·m))`` and rank ``r`` holding
+    ``[:, r]``; ``("kv", dim)`` ``dim`` read as ``(KV, head_dim)`` and rank
+    ``r`` holding head ``r // (m / KV)``."""
+    keys = path.strip("/").split("/")
+    leaf, parent = keys[-1], keys[-2] if len(keys) > 1 else ""
+    if leaf == "embed":
+        return ("split", -2, 1)                     # (V, D)
+    if leaf == "lm_head":
+        return ("split", -1, 1)                     # (D, V)
+    if "moe" in keys:
+        if leaf == "router":
+            return ("rep",)
+        if cfg.n_experts % m == 0:
+            return ("split", -3, 1)                 # E over model
+        return ("split", -2 if leaf == "w2" else -1, 1)   # d_ff over model
+    if "ssm" in keys:
+        if parent == "in_proj":
+            return ("split", -1, 2)                 # (D, [xi | z])
+        if parent in ("x_proj", "out_proj") or leaf == "A_log":
+            return ("split", -2, 1)                 # Di rows
+        return ("split", -1, 1)                     # conv, D, dt_proj
+    if parent in ("wq", "wk", "wv", "wo"):
+        if not attn_split(cfg, m):
+            return ("rep",)
+        if parent == "wo":
+            return ("split", -2, 1)
+        if parent == "wq" or cfg.n_kv_heads % m == 0:
+            return ("split", -1, 1)
+        return ("kv", -1)
+    if "mlp" in keys:
+        if leaf == "w2":
+            return ("split", -2, 1)
+        return ("rep",) if leaf == "b2" else ("split", -1, 1)
+    return ("rep",)                                 # norms
+
+
+def _map_rules(tree, cfg, m: int, fn, path=""):
+    if isinstance(tree, dict):
+        return {k: _map_rules(v, cfg, m, fn, f"{path}/{k}")
+                for k, v in tree.items()}
+    return fn(tree, _tp_rule(path, cfg, m))
+
+
+def _cut(t, rule, rank: int, m: int, cfg):
+    if rule[0] == "rep":
+        return t.clone()
+    d = rule[1] % t.ndim
+    if rule[0] == "kv":
+        head = rank // (m // cfg.n_kv_heads)
+        return t.unflatten(d, (cfg.n_kv_heads, -1)).select(d, head) \
+            .clone(memory_format=torch.contiguous_format)
+    groups, n = rule[2], t.shape[d]
+    if n % (groups * m):
+        raise ValueError(f"dim {n} of a {tuple(t.shape)} leaf does not "
+                         f"split over {m} model ranks")
+    return t.unflatten(d, (groups, m, n // (groups * m))).select(d + 1, rank) \
+        .flatten(d, d + 1).clone(memory_format=torch.contiguous_format)
+
+
+def _join(pieces, rule, m: int, cfg):
+    if rule[0] == "rep":
+        return pieces[0]
+    d = rule[1] % pieces[0].ndim
+    if rule[0] == "kv":
+        per = m // cfg.n_kv_heads
+        return torch.stack([pieces[k * per] for k in
+                            range(cfg.n_kv_heads)], d).flatten(d, d + 1)
+    groups = rule[2]
+    return torch.stack([p.unflatten(d, (groups, -1)) for p in pieces],
+                       d + 1).flatten(d, d + 2)
+
+
+def tp_local_params(params, cfg, rank: int, size: int):
+    """Model rank ``rank`` of ``size``'s compute shards of a whole param
+    tree, as contiguous copies (the kernels check 16-byte alignment);
+    the whole tree copied when ``size`` is 1.  Works on meta tensors
+    (shapes only)."""
+    return _map_rules(params, cfg, size,
+                      lambda t, r: _cut(t, r, rank, size, cfg))
+
+
+def tp_assemble(pieces: list, cfg):
+    """The whole tree from every model rank's :func:`tp_local_params`
+    (``pieces[r]``: rank ``r``'s tree): the inverse, bit for bit."""
+    m = len(pieces)
+
+    def walk(nodes, path):
+        if isinstance(nodes[0], dict):
+            return {k: walk([n[k] for n in nodes], f"{path}/{k}")
+                    for k in nodes[0]}
+        return _join(nodes, _tp_rule(path, cfg, m), m, cfg)
+
+    return walk(pieces, "")
+
+
+def tp_gather_params(local, cfg, comm):
+    """The whole tree on every model rank from each rank's compute shards
+    (``comm``: a :class:`~repro_torch.distributed.comm.Collectives` over
+    the model axis; one all-gather per leaf that is not replicated)."""
+    m = comm.size
+
+    def fn(t, rule):
+        if rule[0] == "rep":
+            return t.clone()
+        return _join(list(comm.all_gather(t.detach()[None]).unbind(0)),
+                     rule, m, cfg)
+
+    return _map_rules(local, cfg, m, fn)
+
+
+def tp_owned(params, cfg, rank: int, size: int):
+    """Per leaf, whether model rank ``rank``'s copy counts once in a sum
+    over the model ranks (the gradient norm): every rank's piece of a
+    split leaf, rank 0's copy of a replicated one, the first holder's of
+    a KV head that several ranks hold."""
+    def fn(_, rule):
+        if rule[0] == "rep":
+            return rank == 0
+        if rule[0] == "kv":
+            return rank % (size // cfg.n_kv_heads) == 0
+        return True
+
+    return _map_rules(params, cfg, size, fn)

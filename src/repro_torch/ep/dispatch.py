@@ -166,7 +166,7 @@ def ep_dispatch_combine(p: dict, cfg, x, *, mesh, use_kernel: bool = True,
     or drops (LC) before the collective — see :func:`ep_round` for the
     retry loop that discovers the dead set.
     """
-    require_executable(mesh)
+    require_executable(mesh, "ep")
     T, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     S = expert_axis_size(mesh)

@@ -63,8 +63,18 @@ def expert_ffn(buf, p: dict, act: str, use_kernel: bool = True):
 
 
 def dispatch_combine(x, gates, ids, pos, keep, E: int, C: int, p: dict,
-                     act: str, use_kernel: bool = True):
-    """dispatch → expert FFN → combine, for pre-decided admissions."""
+                     act: str, use_kernel: bool = True, experts=None):
+    """dispatch → expert FFN → combine, for pre-decided admissions.
+
+    ``experts`` = ``(lo, hi)`` runs only experts ``lo .. hi-1``, whose
+    weights ``p`` holds (a model rank's share of E): the pairs routed
+    elsewhere are left out of the ``(hi - lo, C, d)`` buffer and the
+    combine, and the result is those experts' partial sum."""
+    if experts is not None:
+        lo, hi = experts
+        keep = keep & (ids >= lo) & (ids < hi)
+        ids = torch.clamp(ids - lo, 0, hi - lo - 1)
+        E = hi - lo
     buf, slot = dispatch_tokens(x, keep, ids, pos, E, C)
     out = expert_ffn(buf, p, act, use_kernel=use_kernel)
     return combine_tokens(out, slot, gates, keep, gate_dtype=x.dtype)

@@ -40,36 +40,38 @@ def layer_init(gen: torch.Generator, cfg, dtype, kind: str) -> dict:
     return out
 
 
-def _ffn(p: dict, cfg, h: torch.Tensor, kind: str) -> torch.Tensor:
+def _ffn(p: dict, cfg, h: torch.Tensor, kind: str, tp=None) -> torch.Tensor:
     if kind == "moe":
-        return M.moe_apply(p["moe"], cfg, h)
-    return L.mlp_apply(p["mlp"], h, cfg.act)
+        return M.moe_apply(p["moe"], cfg, h, tp=tp)
+    return L.mlp_apply(p["mlp"], h, cfg.act, tp)
 
 
 def layer_apply(p: dict, cfg, x: torch.Tensor, kind: str, *,
                 ctx: Optional[torch.Tensor] = None,
                 causal: bool = True, schedule: str = "masked",
                 q_chunk: int = 1024, k_chunk: int = 1024,
-                ssm_chunk: int = 256) -> torch.Tensor:
+                ssm_chunk: int = 256, tp=None) -> torch.Tensor:
     """One block forward (whole sequence); ``ctx`` (B, T, d) is what the
-    ``dec`` and ``cross`` kinds attend to."""
+    ``dec`` and ``cross`` kinds attend to.  ``tp``: a model-axis
+    ``Collectives`` when ``p`` is one model rank's compute shards."""
     h = L.norm_apply(p["ln1"], x, cfg.norm)
     if kind == "ssm":
-        return x + S.ssm_apply(p["ssm"], cfg, h, chunk=ssm_chunk)
-    akw = dict(schedule=schedule, q_chunk=q_chunk, k_chunk=k_chunk)
+        return x + S.ssm_apply(p["ssm"], cfg, h, chunk=ssm_chunk, tp=tp)
+    akw = dict(schedule=schedule, q_chunk=q_chunk, k_chunk=k_chunk, tp=tp)
     if kind == "cross":
         a = L.attn_apply(p["attn"], cfg, h, kv_src=ctx, causal=False, **akw)
     else:
         a = L.attn_apply(p["attn"], cfg, h, causal=causal, **akw)
     if kind == "hybrid":
-        a = (a + S.ssm_apply(p["ssm"], cfg, h, chunk=ssm_chunk)) * 0.5
+        a = (a + S.ssm_apply(p["ssm"], cfg, h, chunk=ssm_chunk, tp=tp)) \
+            * 0.5
     x = x + a
     if kind == "dec":
         h = L.norm_apply(p["lnx"], x, cfg.norm)
         x = x + L.attn_apply(p["cross"], cfg, h, kv_src=ctx, causal=False,
                              **akw)
     h = L.norm_apply(p["ln2"], x, cfg.norm)
-    return x + _ffn(p, cfg, h, kind)
+    return x + _ffn(p, cfg, h, kind, tp)
 
 
 def layer_decode_apply(p: dict, cfg, x: torch.Tensor, cache: dict,

@@ -11,7 +11,12 @@ dh)`` caches).  Differences from the reference:
   (the reference's tests hold the two equal); the kernel's per-tile key
   bound is the "tri"/"window" schedule;
 * KV-cache writes update the cache tensor IN PLACE and return it;
-* sharding constraints are gone (one card).
+* sharding constraints are gone; on a ``"model"`` mesh axis
+  :func:`attn_apply` and :func:`mlp_apply` take one model rank's compute
+  shards (``distributed.sharding.tp_local_params``) and a ``tp``
+  :class:`~repro_torch.distributed.comm.Collectives`, and run Megatron's
+  column-parallel / row-parallel split with one all-reduce after the
+  row-parallel matmul (and one of the input's gradient in the backward).
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..distributed.comm import copy_to_tp, reduce_from_tp, share_kv
+from ..distributed.sharding import attn_split
 from ..kernels.flash_attention.ops import flash_attention_op
 
 NEG_INF = -1e30
@@ -118,11 +125,16 @@ def mlp_init(gen, d: int, f: int, act: str, dtype) -> dict:
             "b2": torch.zeros((d,), dtype=dtype, device=gen.device)}
 
 
-def mlp_apply(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+def mlp_apply(p: dict, x: torch.Tensor, act: str, tp=None) -> torch.Tensor:
+    """The MLP; with ``tp`` (a model-axis ``Collectives``) ``p`` holds this
+    rank's columns of ``w1``/``w3``/``b1`` and rows of ``w2``, whose
+    partial products are all-reduced before ``b2`` is added."""
+    x = copy_to_tp(x, tp)
     if act == "swiglu":
-        return (F.silu(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"]
+        return reduce_from_tp((F.silu(x @ p["w1"]) * (x @ p["w3"]))
+                              @ p["w2"], tp)
     h = F.gelu(x @ p["w1"] + p["b1"], approximate="tanh")
-    return h @ p["w2"] + p["b2"]
+    return reduce_from_tp(h @ p["w2"], tp) + p["b2"]
 
 
 # ---------------------------------------------------------------------------
@@ -181,22 +193,41 @@ def attn_apply(
     positions: Optional[torch.Tensor] = None,
     schedule: str = "masked",
     q_chunk: int = 1024, k_chunk: int = 1024,
+    tp=None,
 ) -> torch.Tensor:
     """Whole-sequence attention through the flash-attention kernel: self
     attention, or cross attention to ``kv_src`` (B, T, d), which gives K
     and V, takes no RoPE and no window and is never causal.
+
+    With ``tp`` (a model-axis ``Collectives``) and heads that split over
+    it (:func:`~repro_torch.distributed.sharding.attn_split`), ``p`` holds
+    this rank's ``H/m`` query heads and their KV heads (``wq|wk|wv``
+    column-parallel, ``wo`` row-parallel): the kernel runs on the local
+    heads and ``wo``'s partial product is all-reduced.  Where ``KV < m``
+    several ranks hold one KV head and its gradient is summed over them.
+    Where the heads do not split (hymba-1.5b's 25 over 2), ``p`` is whole
+    (the compute layout replicates it, the storage specs' column shards
+    gathered) and the layer runs whole on every rank with no collective.
 
     ``schedule``, ``q_chunk`` and ``k_chunk`` are kept for signature
     parity with the reference and ignored: the kernel bounds each query
     tile's key loop to the blocks that meet the causal triangle or the
     window band, which is the reference's "tri"/"window" schedule."""
     B, S, d = x.shape
-    H, KV, h = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    src = x if kv_src is None else kv_src
+    h = cfg.head_dim
+    if tp is not None and not attn_split(cfg, tp.size):
+        tp = None
+    x = copy_to_tp(x, tp)
+    src = x if kv_src is None else copy_to_tp(kv_src, tp)
     T = src.shape[1]
-    q = dense_apply(p["wq"], x).reshape(B, S, H, h)
-    k = dense_apply(p["wk"], src).reshape(B, T, KV, h)
-    v = dense_apply(p["wv"], src).reshape(B, T, KV, h)
+    wk, wv = p["wk"], p["wv"]
+    if tp is not None and cfg.n_kv_heads % tp.size:
+        head = tp.rank // (tp.size // cfg.n_kv_heads)
+        wk, wv = ({k: share_kv(t, tp, head, cfg.n_kv_heads)
+                   for k, t in w.items()} for w in (wk, wv))
+    q = dense_apply(p["wq"], x).reshape(B, S, -1, h)
+    k = dense_apply(wk, src).reshape(B, T, -1, h)
+    v = dense_apply(wv, src).reshape(B, T, -1, h)
     if kv_src is None and cfg.rope_theta > 0:
         pos = positions if positions is not None \
             else torch.arange(S, device=x.device)[None, :]
@@ -206,7 +237,7 @@ def attn_apply(
         q.contiguous(), k.contiguous(), v.contiguous(),
         causal=causal and kv_src is None,
         window=cfg.sliding_window if kv_src is None else 0)
-    return dense_apply(p["wo"], out.reshape(B, S, H * h))
+    return reduce_from_tp(dense_apply(p["wo"], out.reshape(B, S, -1)), tp)
 
 
 def kv_cache_update(cache_arr: torch.Tensor, new: torch.Tensor,

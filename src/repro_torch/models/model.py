@@ -13,6 +13,15 @@ for attention, ``{"conv", "h"}`` for the mamba heads, none for the
 encoder or the vlm cross layers) plus ``cross_kv``, the cross layers'
 precomputed K/V, and :func:`decode_step` / :func:`prefill_step` update
 them IN PLACE (each layer writes through a view of its slice).
+
+On a mesh whose ``"model"`` axis is ``m > 1`` (:func:`forward`,
+:func:`loss_fn`; the train step) ``params`` is one model rank's compute
+shards (``distributed.sharding.tp_local_params``): the embedding is
+vocab-parallel (ids outside the rank's rows masked, then all-reduced),
+the head column-parallel (``forward`` returns this rank's vocab shard of
+the logits) and the loss a vocab-parallel cross entropy.  Decoding and
+span prefill on a model axis raise (ROADMAP Queue 1: tensor-parallel
+serving).
 """
 
 from __future__ import annotations
@@ -25,7 +34,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device, torch_dtype
-from ..distributed.sharding import shard_act, shard_logits
+from ..distributed.comm import copy_to_tp, model_comm, reduce_from_tp
+from ..distributed.sharding import (
+    current_mesh, require_executable, shard_act, shard_logits,
+)
 from . import blocks as B
 from . import layers as L
 
@@ -154,6 +166,20 @@ def _head(params: dict, cfg: ModelConfig) -> torch.Tensor:
     return params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
 
 
+def _embed(params: dict, tokens: torch.Tensor, tp) -> torch.Tensor:
+    """The token embeddings; with ``tp`` the embedding holds this rank's
+    vocab rows: other ids give zero rows, and the ranks' rows are summed."""
+    emb, tokens = params["embed"], tokens.long()
+    if tp is None:
+        return emb[tokens]
+    V = emb.shape[0]
+    local = tokens - tp.rank * V
+    mine = (local >= 0) & (local < V)
+    x = torch.where(mine[..., None], emb[torch.clamp(local, 0, V - 1)],
+                    torch.zeros((), dtype=emb.dtype, device=emb.device))
+    return reduce_from_tp(x, tp)
+
+
 def _n_layers(stack: dict) -> int:
     leaf = stack
     while isinstance(leaf, dict):
@@ -169,7 +195,7 @@ def _n_layers(stack: dict) -> int:
 def forward(params: dict, cfg: ModelConfig, batch: dict, *,
             schedule: str = "masked", q_chunk: int = 1024,
             k_chunk: int = 1024, ssm_chunk: int = 256, remat: bool = True,
-            last_only: bool = False) -> torch.Tensor:
+            last_only: bool = False, tp=None) -> torch.Tensor:
     """Logits for (B, S) tokens; encdec also reads ``batch["enc_frames"]``
     (B, enc_seq, d), run through the non-causal encoder into the
     decoder's cross attention, and vlm ``batch["vis_embed"]`` (B, vis_seq,
@@ -191,10 +217,17 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     layer runs under non-reentrant ``torch.utils.checkpoint``, which keeps
     only the layer's inputs and runs the layer again in the backward (so
     every kernel a layer launches launches twice per training
-    microbatch).  Without grad nothing is wrapped."""
-    x = shard_act(params["embed"][batch["tokens"].long()])
+    microbatch).  Without grad nothing is wrapped.
+
+    ``tp``: the model-axis ``Collectives`` the tensor-parallel layers
+    issue and count through; by default one over the current mesh's
+    model axis when it is larger than 1 (then ``params`` are this rank's
+    compute shards and the logits its vocab shard), else None."""
+    if tp is None:
+        tp = model_comm(current_mesh())
+    x = shard_act(_embed(params, batch["tokens"], tp))
     kw = dict(schedule=schedule, q_chunk=q_chunk, k_chunk=k_chunk,
-              ssm_chunk=ssm_chunk)
+              ssm_chunk=ssm_chunk, tp=tp)
     layer = B.layer_apply
     if remat and torch.is_grad_enabled():
         def layer(*a, **k):
@@ -220,19 +253,36 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     if last_only:
         x = x[:, -1:]
     x = L.norm_apply(params["final_norm"], x, cfg.norm)
-    return shard_logits(x @ _head(params, cfg))
+    return shard_logits(copy_to_tp(x, tp) @ _head(params, cfg))
 
 
-def loss_fn(params, cfg, batch, **kw):
+def loss_fn(params, cfg, batch, tp=None, **kw):
     """Mean next-token cross entropy; vocab-padding logits are masked out
-    of the partition function."""
-    logits = forward(params, cfg, batch, **kw).float()
-    labels = batch["labels"]
+    of the partition function.  With a model axis (``tp`` as in
+    :func:`forward`) the cross entropy is vocab-parallel: the logits'
+    maximum, the sum of exponentials and the gold logit are all-reduced
+    over the model ranks, the padding masked on global vocab ids."""
+    if tp is None:
+        tp = model_comm(current_mesh())
+    logits = forward(params, cfg, batch, tp=tp, **kw).float()
+    labels = batch["labels"].long()
+    V = logits.shape[-1]
+    lo = 0 if tp is None else tp.rank * V
     if cfg.padded_vocab != cfg.vocab:
-        pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab
+        pad = torch.arange(lo, lo + V, device=logits.device) >= cfg.vocab
         logits = torch.where(pad, -1e30, logits)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    if tp is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+        return torch.mean(logz - gold)
+    mx = tp.all_reduce(logits.detach().amax(dim=-1), op="max")
+    logz = torch.log(reduce_from_tp(
+        torch.exp(logits - mx[..., None]).sum(dim=-1), tp)) + mx
+    local = labels - lo
+    mine = (local >= 0) & (local < V)
+    gold = torch.gather(logits, -1,
+                        torch.clamp(local, 0, V - 1)[..., None])[..., 0]
+    gold = reduce_from_tp(torch.where(mine, gold, 0.0), tp)
     return torch.mean(logz - gold)
 
 
@@ -291,8 +341,9 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     (logits (B, padded_vocab), cache), the cache updated IN PLACE.
     encdec and vlm read the cross layers' K/V from ``cache["cross_kv"]``
     (decoder layer ``i`` or group ``gi``)."""
+    require_executable(current_mesh(), "serve")
     ci = batch["cache_index"]
-    x = shard_act(params["embed"][batch["tokens"].long()])
+    x = shard_act(_embed(params, batch["tokens"], None))
     if cfg.family == "vlm":
         selfp, selfc = params["self_layers"], cache["self_layers"]
         for gi in range(_n_layers(params["cross_layers"])):
@@ -336,6 +387,7 @@ def prefill_step(params: dict, cfg: ModelConfig, cache: dict,
     query attends over the full cache, so chunked prefill is bitwise
     equal to whole-prompt prefill.  Only full-cache attention families
     (dense/moe, no sliding window) are supported."""
+    require_executable(current_mesh(), "serve")
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"prefill_step needs a position-indexed KV cache "
@@ -349,7 +401,7 @@ def prefill_step(params: dict, cfg: ModelConfig, cache: dict,
     cache_index = torch.as_tensor(batch["cache_index"], device=dev).long()
     count = torch.as_tensor(batch["count"], device=dev).long()
     kind = _plan(cfg)[0][1]
-    x = shard_act(params["embed"][tokens.long()])
+    x = shard_act(_embed(params, tokens, None))
     stack = params["layers"]
     for i in range(_n_layers(stack)):
         x, _ = B.layer_prefill_apply(_layer(stack, i), cfg, x,

@@ -16,6 +16,14 @@ dispatch/FFN/combine mechanics are in
 runs the grouped-matmul kernel by default.  A config with
 ``expert_parallel`` under a mesh whose expert axis divides E takes the
 expert-parallel round instead (:mod:`repro_torch.ep`).
+
+On a ``"model"`` mesh axis of ``m`` ranks (``tp``), routing, capacity and
+the DLBC re-route run whole and alike on every rank (the router is
+replicated, so every rank takes the same decisions); where ``m`` divides
+E each rank runs its ``E/m`` experts (the reference's E-over-model spec),
+else every expert at ``d_ff/m``; the ranks' partial sums are then
+all-reduced.  The gates and the dispatched tokens enter the
+tensor-parallel region, so their gradients are summed over the ranks.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..distributed.comm import copy_to_tp, reduce_from_tp
 from ..distributed.sharding import current_mesh, expert_axis_size
 from ..kernels.moe_dispatch.ops import dispatch_combine
 from ..sched import ExpertCapacityProvider
@@ -115,10 +124,12 @@ def route(x: torch.Tensor, router_w: torch.Tensor, top_k: int):
 
 
 def moe_apply(p: dict, cfg, x: torch.Tensor,
-              return_stats: bool = False, use_kernel: bool = True):
+              return_stats: bool = False, use_kernel: bool = True, tp=None):
     """x: (B, S, d) or (T, d).  Dispatch per ``cfg.moe_dispatch``; the
     SwiGLU expert FFN runs the grouped-matmul kernel unless
-    ``use_kernel=False`` (the reference's einsum path)."""
+    ``use_kernel=False`` (the reference's einsum path).  With ``tp`` (a
+    model-axis ``Collectives``) ``p`` holds this rank's compute shards of
+    the experts."""
     orig_shape = x.shape
     if x.ndim == 3:
         x = x.reshape(-1, x.shape[-1])
@@ -147,12 +158,20 @@ def moe_apply(p: dict, cfg, x: torch.Tensor,
     cap = ExpertCapacityProvider(E, C)
     gates, ids, probs = route(x, p["router"], K)
     rounds = 1
+    experts = None
+    if tp is not None and p["w1"].shape[-3] < E:
+        n = p["w1"].shape[-3]
+        experts = (tp.rank * n, (tp.rank + 1) * n)
+
+    def run(gates_, ids_, pos_, keep_):
+        return reduce_from_tp(dispatch_combine(
+            copy_to_tp(x, tp), copy_to_tp(gates_, tp), ids_, pos_, keep_,
+            E, C, p, cfg.act, use_kernel=use_kernel, experts=experts), tp)
 
     if cfg.moe_dispatch == "lc":
         pos = _positions_in_expert(ids, E)
         keep = cap.admit_mask(pos)
-        y = dispatch_combine(x, gates, ids, pos, keep, E, C, p, cfg.act,
-                             use_kernel=use_kernel)
+        y = run(gates, ids, pos, keep)
     else:
         pos1 = _positions_in_expert(ids, E)
         keep1 = cap.admit_mask(pos1)
@@ -162,8 +181,7 @@ def moe_apply(p: dict, cfg, x: torch.Tensor,
         ids_final, _, pos_final, keep, gates_final, _ = dlbc_reroute(
             ids, gates, probs, pos1, keep1, load, cap, E,
             expert_open=resid > 0)
-        y = dispatch_combine(x, gates_final, ids_final, pos_final, keep, E,
-                             C, p, cfg.act, use_kernel=use_kernel)
+        y = run(gates_final, ids_final, pos_final, keep)
     y = y.reshape(orig_shape)
     if return_stats:
         return y, {"dropped_frac": torch.sum(~keep) / (T * K),

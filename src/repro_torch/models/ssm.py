@@ -13,6 +13,13 @@ each chunk's last state flows into the previous chunk), and each chunk is
 rematerialised as the reference's ``@jax.checkpoint`` ``chunk_body`` is:
 autograd keeps the chunk's input and carried state, never its ``dA`` and
 ``dBx``.  Decode updates the layer's ``conv``/``h`` cache IN PLACE.
+
+On a ``"model"`` mesh axis (``tp``) a rank holds ``d_inner / m`` channels
+(``distributed.sharding.tp_local_params``: its slice of ``xi`` and of
+``z`` in ``in_proj``, of the conv, ``dt_proj``, ``A_log`` and ``D``):
+``in_proj`` and ``dt_proj`` are column-parallel, ``x_proj`` and
+``out_proj`` row-parallel, so ``(dt, B, C)`` are all-reduced before the
+split and ``ssm_scan`` runs at ``d_inner / m``.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.comm import copy_to_tp, reduce_from_tp
 from ..kernels.ssm_scan.ops import ssm_scan_op
 from .layers import _norm_init, dense_apply, dense_init
 
@@ -67,11 +75,14 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y.to(x.dtype), xp[:, xp.shape[1] - (cw - 1):]
 
 
-def _ssm_params(p: dict, cfg, x: torch.Tensor) -> tuple:
+def _ssm_params(p: dict, cfg, x: torch.Tensor, tp=None) -> tuple:
     """Input-dependent (dt, B, C) and the discretised ``(dA, dBx)`` (…, Di,
-    N) fp32, with ``C`` (…, N) fp32."""
+    N) fp32, with ``C`` (…, N) fp32.  With ``tp``, ``x`` holds this rank's
+    channels: ``x_proj``'s partial product is all-reduced, and the
+    gradient of the whole ``(dt, B, C)`` summed over the ranks."""
     dtr, n = cfg.dt_rank, cfg.ssm_state
-    dbc = dense_apply(p["x_proj"], x)  # (..., dtr + 2n)
+    dbc = copy_to_tp(reduce_from_tp(dense_apply(p["x_proj"], x), tp),
+                     tp)  # (..., dtr + 2n)
     dt, Bc, Cc = torch.split(dbc, [dtr, n, n], dim=-1)
     dt = F.softplus(dense_apply(p["dt_proj"], dt).float())
     A = -torch.exp(p["A_log"])  # (Di, N)
@@ -81,7 +92,7 @@ def _ssm_params(p: dict, cfg, x: torch.Tensor) -> tuple:
 
 
 def ssm_scan_chunked(p: dict, cfg, x: torch.Tensor,
-                     chunk: int = 256) -> torch.Tensor:
+                     chunk: int = 256, tp=None) -> torch.Tensor:
     """Selective scan over (B, L, Di) input, one ``ssm_scan`` launch per
     ``chunk`` steps carrying the state.  Returns (B, L, Di) fp32 with the
     ``x·D`` skip added."""
@@ -92,7 +103,7 @@ def ssm_scan_chunked(p: dict, cfg, x: torch.Tensor,
                          f"scan chunk {chunk}")
 
     def chunk_body(x_c, h):
-        dA, dBx, Cc = _ssm_params(p, cfg, x_c)
+        dA, dBx, Cc = _ssm_params(p, cfg, x_c, tp)
         return ssm_scan_op(dA, dBx, Cc.contiguous(), h)
 
     body = chunk_body
@@ -108,15 +119,18 @@ def ssm_scan_chunked(p: dict, cfg, x: torch.Tensor,
     return torch.cat(ys, dim=1) + x.float() * p["D"]
 
 
-def ssm_apply(p: dict, cfg, x: torch.Tensor, chunk: int = 256
+def ssm_apply(p: dict, cfg, x: torch.Tensor, chunk: int = 256, tp=None
               ) -> torch.Tensor:
-    """Full mamba block: in_proj → conv → selective scan → gate → out."""
-    xi, z = torch.chunk(dense_apply(p["in_proj"], x), 2, dim=-1)
+    """Full mamba block: in_proj → conv → selective scan → gate → out;
+    with ``tp`` (a model-axis ``Collectives``) on this rank's channels,
+    ``out_proj``'s partial product all-reduced."""
+    xi, z = torch.chunk(dense_apply(p["in_proj"], copy_to_tp(x, tp)), 2,
+                        dim=-1)
     xi, _ = _causal_conv(xi, p["conv_w"], p["conv_b"])
     xi = F.silu(xi)
-    y = ssm_scan_chunked(p, cfg, xi, chunk=chunk)
+    y = ssm_scan_chunked(p, cfg, xi, chunk=chunk, tp=tp)
     y = y * F.silu(z.float())
-    return dense_apply(p["out_proj"], y.to(x.dtype))
+    return reduce_from_tp(dense_apply(p["out_proj"], y.to(x.dtype)), tp)
 
 
 # ---------------------------------------------------------------------------

@@ -26,15 +26,26 @@ batch sharding):
                    the params all-gathered by bucket; optionally
                    compressed to bf16.
 
-Every reduction is a mean over the data ranks (a sum, then a division).
-The ``afe`` policies all-reduce the gradient norm's per-leaf sums before
-clipping, so the non-finite guard agrees on every rank.  Each call counts
-its collectives by kind (:class:`~repro_torch.distributed.comm.Collectives`,
-the counterpart of the reference's ``collective_stats`` over HLO) in
+Every reduction is a mean over the data ranks (a sum, then a division),
+over the group of the fsdp axes only.  The ``afe`` policies all-reduce
+the gradient norm's per-leaf sums before clipping, so the non-finite
+guard agrees on every rank.  Each call counts its collectives by kind
+(:class:`~repro_torch.distributed.comm.Collectives`, the counterpart of
+the reference's ``collective_stats`` over HLO) in
 ``metrics["collectives"]``.  Without a mesh no collective runs and the
 policies differ only in ``afe_bucket``'s flatten/unflatten and its bf16
 rounding.  A mesh with an expert axis larger than 1 (EP under autograd)
-or a model axis larger than 1 raises ``NotImplementedError``.
+raises ``NotImplementedError``.
+
+On a ``"model"`` axis of ``m > 1`` ranks the step is tensor-parallel
+(Megatron, :mod:`repro_torch.distributed.comm`): ``params`` and the
+optimizer state are this model rank's compute shards
+(``step.local_state`` cuts them from whole trees, ``step.whole_state``
+gathers them back), the FSDP layout is built over those local shapes,
+the data ranks of one model rank sync its shards, and the gradient norm
+adds the model ranks' sums.  The layers' all-reduces over the model
+ranks (the recompute under ``remat`` re-issues a layer's forward ones)
+and the norm's are counted apart, in ``metrics["tp_collectives"]``.
 
 The math is the reference's: per-microbatch gradients of ``loss_fn``
 (autograd; on the card through the kernels' backward kernels), summed in
@@ -56,9 +67,10 @@ import torch
 import torch.distributed as dist
 
 from ..configs.base import ModelConfig, ShapeConfig
-from ..distributed.comm import Collectives, mesh_group
+from ..distributed.comm import Collectives, mesh_group, model_comm
 from ..distributed.sharding import (
-    current_mesh, expert_axis_size, fsdp_layout, require_executable,
+    current_mesh, fsdp_axes, fsdp_layout, require_executable,
+    tp_gather_params, tp_local_params, tp_owned,
 )
 from ..models import model as MDL
 from ..sched import FixedCapacity, get_policy
@@ -276,18 +288,19 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
                   k_chunk=scfg.k_chunk, ssm_chunk=scfg.ssm_chunk,
                   remat=scfg.remat)
     mesh = current_mesh()
+    require_executable(mesh, "train")
     group = layout = None
+    tp = model_comm(mesh)
+    tp_rank, tp_size = (tp.rank, tp.size) if tp is not None else (0, 1)
+    shapes = MDL.param_shapes(cfg)
+    if tp is not None:
+        shapes = tp_local_params(shapes, cfg, tp_rank, tp_size)
+    owned = tree_leaves(tp_owned(shapes, cfg, tp_rank, tp_size)) \
+        if tp is not None else None
     if mesh is not None:
-        require_executable(mesh)
-        if expert_axis_size(mesh) > 1:
-            raise NotImplementedError(
-                "a train step on a mesh with an expert axis (EP under "
-                "autograd) is not ported yet (ROADMAP Queue 1: EP under "
-                "autograd)")
-        group = mesh_group(mesh)
+        group = mesh_group(mesh, fsdp_axes(mesh))
         if dp_shard:
-            layout = fsdp_layout(MDL.param_shapes(cfg), cfg,
-                                 dist.get_rank(group),
+            layout = fsdp_layout(shapes, cfg, dist.get_rank(group),
                                  dist.get_world_size(group))
     dims = tree_leaves(layout.dims) if layout is not None else None
 
@@ -302,7 +315,7 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
         if mb_plan is not None else 1
     spawns_per_step = len(mb_plan.spawned) if mb_plan is not None else 0
     if scfg.policy == "afe_bucket":
-        n_leaves = len(tree_leaves(MDL.param_shapes(cfg)))
+        n_leaves = len(tree_leaves(shapes))
         bplan = sched_pol.decide(0, n_leaves, sched_cap).plan
         # serial arm (plan None) builds its buckets on the caller: 0 spawns
         spawns_per_step += len(bplan.spawned) if bplan is not None else 0
@@ -324,6 +337,7 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
                              f"microbatches")
         b = B // M
         comm = Collectives(group) if mesh is not None else None
+        tpc = Collectives(tp.group) if tp is not None else None
         lo, hi = 0, b
         if comm is not None:
             if b % comm.size:
@@ -343,7 +357,7 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
         acc, loss_sum = None, 0.0
         for i in range(M):
             mb = {k: v[i * b + lo:i * b + hi] for k, v in batch.items()}
-            loss = MDL.loss_fn(vparams, cfg, mb, **fwd_kw)
+            loss = MDL.loss_fn(vparams, cfg, mb, tp=tpc, **fwd_kw)
             g = torch.autograd.grad(loss, views)
             loss_sum = loss_sum + loss.detach()
             del loss
@@ -383,8 +397,8 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
         del acc
 
         if layout is None:
-            params, opt_state, metrics = adamw_update(params, grads,
-                                                      opt_state, ocfg)
+            params, opt_state, metrics = adamw_update(
+                params, grads, opt_state, ocfg, tp=tpc, owned=owned)
         else:
             # each rank updates its FSDP pieces, then the whole params are
             # all-gathered: per leaf (afe) or per bucket and dtype
@@ -393,7 +407,8 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
                       for p, d in zip(leaves, dims)]
             _, opt_state, metrics = adamw_update(
                 tree_unflatten(params, pieces), grads, opt_state, ocfg,
-                comm=comm, sharded=[d is not None for d in dims])
+                comm=comm, sharded=[d is not None for d in dims], tp=tpc,
+                owned=owned)
             sharded = [i for i, d in enumerate(dims) if d is not None]
             groups = [[i] for i in sharded] if scfg.policy == "afe" else \
                 [g for bin_ in bins
@@ -411,9 +426,55 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
         metrics["loss"] = loss_sum / M
         metrics["collectives"] = dict(comm.counts) if comm is not None \
             else {}
+        metrics["tp_collectives"] = dict(tpc.counts) if tpc is not None \
+            else {}
         return params, opt_state, metrics
 
+    def local_state(params, opt_state=None):
+        """This rank's params (its model rank's compute shards) and, when
+        given, optimizer state (those shards' FSDP pieces under the afe
+        policies) cut from whole trees (a fresh init, a checkpoint)."""
+        if tp is not None:
+            params = tp_local_params(params, cfg, tp_rank, tp_size)
+        if opt_state is None:
+            return params
+        opt_state = dict(opt_state)
+        for k in ("m", "v", "master"):
+            if k in opt_state:
+                if tp is not None:
+                    opt_state[k] = tp_local_params(opt_state[k], cfg,
+                                                   tp_rank, tp_size)
+                if layout is not None:
+                    opt_state[k] = layout.local_tree(opt_state[k])
+        return params, opt_state
+
+    def whole_state(params, opt_state):
+        """The whole params and optimizer state on every rank from each
+        rank's (collective over the mesh: the FSDP pieces all-gathered
+        over the data ranks, then the compute shards over the model
+        ranks); the inverse of :func:`local_state`."""
+        comm = Collectives(group) if mesh is not None else None
+        tpc = Collectives(tp.group) if tp is not None else None
+        local = tree_leaves(params)
+        opt_state = dict(opt_state)
+        for k in ("m", "v", "master"):
+            if k not in opt_state:
+                continue
+            if layout is not None:
+                pieces = tree_leaves(opt_state[k])
+                opt_state[k] = tree_unflatten(params, [
+                    x if d is None else _all_gather(
+                        comm, [x], [d], [p.shape])[0].contiguous()
+                    for x, d, p in zip(pieces, dims, local)])
+            if tpc is not None:
+                opt_state[k] = tp_gather_params(opt_state[k], cfg, tpc)
+        if tpc is not None:
+            params = tp_gather_params(params, cfg, tpc)
+        return params, opt_state
+
     step.layout = layout
+    step.local_state = local_state
+    step.whole_state = whole_state
     # Static per-step schedule record: the trainer multiplies these by
     # executed steps into its SchedTelemetry (Fig. 10 spawn/join JSON).
     step.sched_counts = sched_counts

@@ -21,7 +21,11 @@ one device):
   the metric surface the tests assert on);
 * **restart on another device** — restore() places the tensors on the
   device of this run; under a mesh every rank saves and restores its own
-  shard files (the afe policies' optimizer state as FSDP pieces);
+  shard files (the afe policies' optimizer state as FSDP pieces); on a
+  ``"model"`` axis larger than 1 every rank saves the whole state
+  (gathered by ``step.whole_state``) and cuts its shards from the whole
+  state it restores, so a checkpoint moves between meshes and world
+  sizes whole;
 * **non-finite-grad guard** — the optimizer skips bad steps atomically
   (the paper's exception semantics: a failure inside the step must not
   poison the join).
@@ -43,6 +47,7 @@ from ..ckpt.checkpoint import CheckpointManager
 from ..configs.base import ModelConfig, ShapeConfig
 from ..data.pipeline import DataConfig, SyntheticPipeline
 from ..device import resolve_device
+from ..distributed.sharding import model_size
 from ..models import model as MDL
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs
@@ -110,8 +115,9 @@ def run_training(cfg: ModelConfig, shape: ShapeConfig,
     report = TrainReport()
 
     step_fn, _ = build_train_step(cfg, shape, scfg, ocfg)
+    whole = model_size() > 1   # tensor parallel: checkpoints hold it whole
     splits = step_fn.layout.splits(MDL.param_shapes(cfg)) \
-        if step_fn.layout is not None else None
+        if step_fn.layout is not None and not whole else None
     sched_counts = step_fn.sched_counts
     eval_fn = build_eval_loss(cfg, scfg) if eval_loss_hook else None
 
@@ -135,12 +141,14 @@ def run_training(cfg: ModelConfig, shape: ShapeConfig,
         # restore dtypes (npy roundtrip keeps them; cast params to model dt)
         params = tree_map(lambda a, s: a.to(s.dtype), params,
                           MDL.param_shapes(cfg))
+        if whole:
+            params, opt_state = step_fn.local_state(params, opt_state)
         start_step = latest
         report.resumed_from = latest
     else:
-        params = MDL.init_params(
+        params = step_fn.local_state(MDL.init_params(
             cfg, torch.Generator(device=dev).manual_seed(tcfg.seed),
-            device=dev)
+            device=dev))
         opt_state = init_opt_state(params, ocfg, layout=step_fn.layout)
 
     times: list = []
@@ -201,8 +209,10 @@ def run_training(cfg: ModelConfig, shape: ShapeConfig,
             if (step + 1) % tcfg.ckpt_every == 0 or step + 1 == tcfg.steps:
                 with obs.trace_span("train", "ckpt", {"step": step + 1}
                                     if obs.enabled() else None):
+                    state = step_fn.whole_state(params, opt_state) \
+                        if whole else (params, opt_state)
                     mgr.save(step + 1,
-                             {"params": params, "opt": opt_state},
+                             {"params": state[0], "opt": state[1]},
                              blocking=(step + 1 == tcfg.steps),
                              splits=splits)
             elif mgr.pending:
