@@ -159,17 +159,34 @@ one cross layer, since its ~180 GB of bf16 weights exceed the card):
     microbatches) within 2e-2 of the one-process steps, per-rank launches
     exactly ``expected_launches`` of the rank-local config, per-rank peak
     memory.
+20. ``ep_train``: expert parallelism under autograd.  (a) On a one-rank
+    NCCL group, the EP round (``ep_dispatch_combine`` over an expert-axis
+    ``Collectives``) forward and backward at granite's full MoE width on
+    a training microbatch's 4096 tokens (C 1280), fp32 and bf16, against
+    ``moe_apply``'s output and gradients (x, router, w1, w3, w2; 1e-4 /
+    0.1 of each one's largest value), exactly one ``moe_gmm`` and one
+    ``moe_gmm_bwd`` launch and two all-to-alls and one all-gather each
+    way per round, with both forward + backward times.  (b) Two
+    processes on the one card over gloo on an ``(expert 2, data 1,
+    model 1)`` mesh, full-width bf16 granite with ``expert_parallel``
+    (E 16 per rank), ``lc`` and ``afe`` for 2 steps at C 1280 and one
+    ``lc`` step at capacity factor 4: losses within 2e-2 of the
+    one-process steps (and, at ample capacity, gradient norms), launches
+    and both axes' collectives exact, per-rank step ms and peak memory.
 
 Each main-path run (each forward of phases 4, 7, 9, 10, 15 and 16; the
 serve CLI and the batcher run of phase 5 for ``moe_gmm``; the four steps
-of phases 13, 14 and 15 for the backward kernels, each EP round, and each
-rank's every step in phase 19) zeroes the launch counters
+of phases 13, 14 and 15 for the backward kernels, each EP round, each
+rank's every step in phases 19 and 20, and phase 20's EP round under
+autograd) zeroes the launch counters
 just before it and reads them just after; the ``kernels`` line takes ``moe_gmm``'s
 count from the serve CLI, ``ssm_scan``'s from the fp32 falcon-mamba-7b
 forward, ``flash_attention``'s from the bf16 phi3-mini forward,
 ``flash_attention_bwd``'s and ``moe_gmm_bwd``'s from phase 13 (and a
 second ``flash_attention_bwd`` entry, at whisper's cross-attention shape,
-from phase 15) and ``ssm_scan_bwd``'s from phase 14.  Each
+from phase 15) and ``ssm_scan_bwd``'s from phase 14; four more
+entries give ``moe_gmm``'s and ``moe_gmm_bwd``'s launches on phase 20's
+EP path (per round in (a), per step of expert rank 0 in (b)).  Each
 phase's wall time is printed after it.  Launches made to compare a kernel with its plain
 version are not counted.  Every phase prints JSON lines and raises on
 failure.  The second-to-last line is the ``kernels`` JSON and the last
@@ -1643,13 +1660,14 @@ def tp_local_config(cfg, m: int):
 
 def tp_step_setup(torch, cfg, mesh, *, seq_len: int, global_batch: int,
                   microbatches: int, lr: float, ssm_chunk: int = 256,
-                  dev: str = "cuda"):
-    """``build_train_step`` under ``mesh`` (None: one process) with policy
-    ``lc`` (every collective an all-reduce: gloo carries only those for
-    CUDA tensors), sched policy ``dlbc`` and ``remat``; whole weights from
-    ``SEED``, cut to this rank's compute shards (``step.local_state``);
-    AdamW at ``lr``, warmup 1; one batch from the same generator.  Returns
-    (step, params, opt, batch)."""
+                  dev: str = "cuda", policy: str = "lc"):
+    """``build_train_step`` under ``mesh`` (None: one process) with
+    ``policy`` (by default ``lc``, every collective an all-reduce),
+    sched policy ``dlbc`` and
+    ``remat``; whole weights from ``SEED``, cut to this rank's compute
+    shards (``step.local_state``); AdamW at ``lr``, warmup 1, its state
+    laid out by ``step.layout``; one batch from the same generator.
+    Returns (step, params, opt, batch)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.distributed.sharding import mesh_context
     from repro_torch.models import model as TM
@@ -1661,10 +1679,10 @@ def tp_step_setup(torch, cfg, mesh, *, seq_len: int, global_batch: int,
     ocfg = AdamWConfig(lr=lr, warmup_steps=1)
     with mesh_context(mesh):
         step, _ = build_train_step(cfg, shape, StepConfig(
-            policy="lc", sched_policy="dlbc", ssm_chunk=ssm_chunk), ocfg)
+            policy=policy, sched_policy="dlbc", ssm_chunk=ssm_chunk), ocfg)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params = step.local_state(TM.init_params(cfg, gen, device=dev))
-    opt = init_opt_state(params, ocfg)
+    opt = init_opt_state(params, ocfg, layout=step.layout)
     toks = torch.randint(0, cfg.vocab, (global_batch, seq_len + 1),
                          generator=gen, device=dev)
     batch = {"tokens": toks[:, :-1].contiguous(),
@@ -1677,9 +1695,10 @@ def tp_steps(torch, step, params, opt, batch, steps: int,
              dev: str = "cuda") -> dict:
     """``steps`` steps on one batch: losses, gradient norms, skipped steps,
     host-clock step ms (synchronised) and, per step, the kernel launches
-    and the model-axis collectives."""
+    and the collectives of the data, model and expert axes."""
     out = {"losses": [], "grad_norms": [], "skipped": [], "step_ms": [],
-           "launches": [], "tp_collectives": []}
+           "launches": [], "collectives": [], "tp_collectives": [],
+           "ep_collectives": []}
     for _ in range(steps):
         zero_counters()
         t0 = time.perf_counter()
@@ -1691,7 +1710,8 @@ def tp_steps(torch, step, params, opt, batch, steps: int,
         out["losses"].append(float(m["loss"]))
         out["grad_norms"].append(float(m["grad_norm"]))
         out["skipped"].append(int(m["nonfinite_skipped"]))
-        out["tp_collectives"].append(m["tp_collectives"])
+        for k in ("collectives", "tp_collectives", "ep_collectives"):
+            out[k].append(m[k])
     return out
 
 
@@ -1759,10 +1779,44 @@ def tp_rank_run(torch, rank: int, plan: dict) -> dict:
     return out
 
 
+def ep_rank_run(torch, rank: int, plan: dict) -> dict:
+    """One expert rank of :func:`phase_ep_train` (b): for each case
+    ``(policy, capacity factor or None for the config's, steps)``,
+    full-width bf16 steps on an ``(expert 2, data 1, model 1)`` mesh,
+    with the rank's peak memory; the results in the cases' order."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+
+    dev = plan["dev"]
+    mesh = make_test_mesh(data=1, model=1, expert=2, device_type="cpu")
+    arch, S, B, mb = plan["bf16"]
+    base = dataclasses.replace(get_config(arch, smoke=plan["smoke"]),
+                               expert_parallel=True)
+    out = []
+    for policy, cf, steps in plan["cases"]:
+        cfg = base if cf is None else \
+            dataclasses.replace(base, moe_capacity_factor=cf)
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        step, p, o, batch = tp_step_setup(
+            torch, cfg, mesh, seq_len=S, global_batch=B, microbatches=mb,
+            lr=1e-4, dev=dev, policy=policy)
+        res = tp_steps(torch, step, p, o, batch, steps, dev)
+        res["local_experts"] = int(p["layers"]["moe"]["w1"].shape[-3])
+        if dev == "cuda":
+            res["max_memory_allocated_gb"] = \
+                torch.cuda.max_memory_allocated() / 1e9
+        out.append(res)
+        del step, p, o, batch
+    return out
+
+
 def tp_rank(rank: int, store: str, plan: dict, q) -> None:
     """A spawned rank: a gloo process group (NCCL refuses two ranks on one
-    device; gloo all-reduces CUDA tensors through host memory), then
-    :func:`tp_rank_run`; the result or the traceback goes on ``q``."""
+    device; gloo stages CUDA tensors through host memory), then
+    :func:`tp_rank_run` (or :func:`ep_rank_run` for a plan of kind
+    ``"ep"``); the result or the traceback goes on ``q``."""
     import traceback
 
     sys.path.insert(0, str(SRC))
@@ -1776,7 +1830,8 @@ def tp_rank(rank: int, store: str, plan: dict, q) -> None:
         torch.backends.cudnn.allow_tf32 = False
         dist.init_process_group("gloo", init_method=f"file://{store}",
                                 rank=rank, world_size=2)
-        q.put((rank, tp_rank_run(torch, rank, plan)))
+        run = ep_rank_run if plan.get("kind") == "ep" else tp_rank_run
+        q.put((rank, run(torch, rank, plan)))
     except BaseException:
         q.put((rank, {"error": traceback.format_exc()}))
     finally:
@@ -1899,6 +1954,207 @@ def phase_tp_train(torch, cfg, hymba, card: str) -> list:
                        f"{b['launches']}")
     if bad:
         raise AssertionError(f"tp_train: {bad}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: expert parallelism under autograd
+# ---------------------------------------------------------------------------
+
+
+def ep_expected_collectives(cfg, microbatches: int,
+                            remat: bool = True) -> dict:
+    """The expert axis's collectives per train step: per MoE layer and
+    microbatch the round's two all-to-alls and output all-gather forward,
+    its two all-to-alls and token all-gather backward, and under ``remat``
+    the recompute's two all-to-alls (it stops at the gate-combine's saved
+    input, before the output gather); per step the router's gradient sum
+    and the norm's all-reduce."""
+    n = cfg.n_layers * microbatches
+    out = dict.fromkeys(("all_reduce", "reduce_scatter", "all_gather",
+                         "all_to_all", "send_recv"), 0)
+    out.update(all_to_all=(6 if remat else 4) * n, all_gather=2 * n,
+               all_reduce=2)
+    return out
+
+
+def phase_ep_train(torch, cfg, card: str, T: int = 4096,
+                   with_ranks: bool = True) -> list:
+    """Expert parallelism under autograd.
+
+    (a) One NCCL rank, an expert axis of 1: the EP round
+    (``ep_dispatch_combine`` with an expert-group ``Collectives``) forward
+    and backward at ``cfg``'s full MoE width (E 32, top-8, d 1024, f 512)
+    on ``T`` tokens (a training microbatch of 4 x 1024: C 1280 at
+    capacity factor 1.25), fp32 (TF32 off) and bf16, against the
+    single-host ``moe_apply``'s forward and backward on the same weights,
+    tokens and output gradient: each gradient (x, router, w1, w3, w2)
+    within 1e-4 (fp32) or 0.1 (bf16, the ``moe_gmm`` tolerance) of its
+    largest reference value; exactly one ``moe_gmm`` and one
+    ``moe_gmm_bwd`` launch per round, and two all-to-alls and one
+    all-gather each way; forward + backward times of both (CUDA events,
+    mean of 5 after 2 warm-up).
+
+    (b) Two processes on the one card over gloo, an ``(expert 2, data 1,
+    model 1)`` mesh, ``cfg`` at full width in bf16 with
+    ``expert_parallel``, seq 1024, global batch 8 in 2 microbatches,
+    policies ``lc`` and ``afe``, 2 AdamW steps each at the config's
+    capacity (C 1280), and one ``lc`` step at capacity factor E / top_k
+    (ample, C 4096): every step's loss within 2e-2 relative of the
+    one-process steps, and at ample capacity the gradient norm too (under
+    pressure the round admits per lane and local expert, the single-host
+    dispatch per expert over all tokens, with its re-route); per-rank
+    launches exactly ``expected_launches`` of the rank-local config (E
+    16), the expert and data axes' collectives exactly, no skipped step;
+    per-rank step ms and peak memory."""
+    import gc
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed.comm import Collectives
+    from repro_torch.device import torch_dtype
+    from repro_torch.ep.dispatch import ep_dispatch_combine
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import moe as M
+    from repro_torch.train.train_step import StepConfig
+
+    names = ("x", "router", "w1", "w3", "w2")
+    one_way = {"all_reduce": 0, "reduce_scatter": 0, "all_gather": 1,
+               "all_to_all": 2, "send_recv": 0}
+    store = nccl_world_of_one(torch)
+    rows = []
+    try:
+        group = make_test_mesh(data=1, model=1, expert=1).get_group("expert")
+        for dtype in ("float32", "bfloat16"):
+            c = dataclasses.replace(cfg, dtype=dtype, expert_parallel=True)
+            host = dataclasses.replace(c, expert_parallel=False)
+            dt = torch_dtype(dtype)
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            p = M.moe_init(gen, c, dt)
+            x = torch.randn(T, c.d_model, generator=gen, device="cuda").to(dt)
+            dout = torch.randn(T, c.d_model, generator=gen,
+                               device="cuda").to(dt)
+
+            def run(ep):
+                ins = [t.detach().clone().requires_grad_(True)
+                       for t in (x, p["router"], p["w1"], p["w3"], p["w2"])]
+                pp = dict(zip(names[1:], ins[1:]))
+                y = M.moe_apply(pp, host, ins[0]) if ep is None else \
+                    ep_dispatch_combine(pp, c, ins[0], comm=ep)
+                return y, torch.autograd.grad(y, ins, dout)
+
+            want_y, want = run(None)
+            ep = Collectives(group)
+            torch.cuda.synchronize()
+            zero_counters()
+            got_y, got = run(ep)
+            torch.cuda.synchronize()
+            launches = read_counters()
+            tol = 1e-4 if dtype == "float32" else 0.1
+            rel = {n: float((g.float() - w.float()).abs().max())
+                   / max(float(w.float().abs().max()), 1e-30)
+                   for n, g, w in zip(("y",) + names, (got_y,) + got,
+                                      (want_y,) + want)}
+            finite = all(bool(torch.isfinite(g).all()) for g in got)
+            ep_ms = time_ms(torch, lambda: run(Collectives(group)), 5)
+            host_ms = time_ms(torch, lambda: run(None), 5)
+            row = {"phase": "ep_train", "check": "round", "arch": cfg.name,
+                   "card": card, "dtype": dtype, "T": T, "E":
+                       c.n_experts, "top_k": c.top_k, "capacity":
+                       M.capacity(T, c.n_experts, c.top_k,
+                                  c.moe_capacity_factor),
+                   "world_size": dist.get_world_size(),
+                   "backend": dist.get_backend(),
+                   "max_err_over_max": rel, "tol": tol,
+                   "launches_per_round": {k: launches[k] for k in
+                                          ("moe_gmm", "moe_gmm_bwd")},
+                   "ep_collectives_per_round": ep.counts,
+                   "fwd_bwd_ms_ep_round": ep_ms,
+                   "fwd_bwd_ms_moe_apply": host_ms}
+            emit(row)
+            rows.append(row)
+            del want, got, want_y, got_y, p, x, dout
+            torch.cuda.empty_cache()
+            if not finite or max(rel.values()) > tol or \
+                    row["launches_per_round"] != {"moe_gmm": 1,
+                                                  "moe_gmm_bwd": 1} or \
+                    ep.counts != {k: 2 * v for k, v in one_way.items()}:
+                raise AssertionError(f"ep_train round {dtype}: {row}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    if not with_ranks:
+        return rows
+
+    ep_cfg = dataclasses.replace(cfg, expert_parallel=True)
+    ample = cfg.n_experts / cfg.top_k
+    one = {}
+    for cf, steps in ((None, 2), (ample, 1)):
+        torch.cuda.reset_peak_memory_stats()
+        c = ep_cfg if cf is None else \
+            dataclasses.replace(ep_cfg, moe_capacity_factor=cf)
+        one[cf] = tp_steps(torch, *tp_step_setup(
+            torch, c, None, seq_len=1024, global_batch=8, microbatches=2,
+            lr=1e-4), steps)
+        one[cf]["max_memory_allocated_gb"] = \
+            torch.cuda.max_memory_allocated() / 1e9
+        gc.collect()
+        torch.cuda.empty_cache()
+    plan = {"kind": "ep", "dev": "cuda", "smoke": False,
+            "cases": (("lc", None, 2), ("afe", None, 2), ("lc", ample, 1)),
+            "bf16": (cfg.name, 1024, 8, 2)}
+    got = tp_spawn(plan)
+    local = dataclasses.replace(ep_cfg, n_experts=cfg.n_experts // 2)
+    expect = expected_launches(local, 1024, 2)
+    ep_expect = ep_expected_collectives(cfg, 2)
+    bad = []
+    for i, (policy, cf, steps) in enumerate(plan["cases"]):
+        data_expect = expected_collectives(cfg, policy, 2,
+                                           StepConfig().n_buckets)
+        ref = one[cf]
+        for r in range(2):
+            b = got[r][i]
+            row = {"phase": "ep_train", "check": "bf16", "rank": r,
+                   "card": card, "arch": cfg.name,
+                   "mesh": "expert 2, data 1, model 1", "backend": "gloo",
+                   "policy": policy, "seq_len": 1024, "global_batch": 8,
+                   "microbatches": 2, "capacity_factor":
+                       cf or cfg.moe_capacity_factor,
+                   "capacity": M.capacity(4096, cfg.n_experts, cfg.top_k,
+                                          cf or cfg.moe_capacity_factor),
+                   **b, "one_process_losses": ref["losses"],
+                   "one_process_grad_norms": ref["grad_norms"],
+                   "one_process_step_ms": ref["step_ms"],
+                   "one_process_max_memory_allocated_gb":
+                       ref["max_memory_allocated_gb"],
+                   "expected_launches_per_step": expect,
+                   "expected_ep_collectives_per_step": ep_expect,
+                   "expected_collectives_per_step": data_expect}
+            emit(row)
+            rows.append(row)
+            # the losses always; the gradient norms where capacity is
+            # ample, since under pressure the EP round admits per lane and
+            # per local expert what the single-host dispatch admits (and
+            # re-routes) per expert over all tokens, as the reference's
+            # does
+            gated = list(zip(b["losses"], ref["losses"]))
+            if cf is not None:
+                gated += list(zip(b["grad_norms"], ref["grad_norms"]))
+            for x, y in gated:
+                if not math.isfinite(x) or abs(x - y) > 2e-2 * abs(y):
+                    bad.append(f"{policy} cf {cf} rank {r}: {x} against "
+                               f"{y}")
+            if sum(b["skipped"]) or b["local_experts"] != local.n_experts \
+                    or any(n != expect for n in b["launches"]) \
+                    or any(n != ep_expect for n in b["ep_collectives"]) \
+                    or any(n != data_expect for n in b["collectives"]):
+                bad.append(f"{policy} rank {r}: skipped {b['skipped']}, "
+                           f"launches {b['launches']}, ep collectives "
+                           f"{b['ep_collectives']}, collectives "
+                           f"{b['collectives']}")
+    if bad:
+        raise AssertionError(f"ep_train: {bad}")
     return rows
 
 
@@ -2108,8 +2364,9 @@ def main() -> int:
     timed(phase_flash, torch, (A(g2, 1024, "bfloat16", B=4, what=rank2),))
     timed(phase_flash_bwd, torch, (A(g2, 1024, "bfloat16", B=4,
                                      what=rank2),))
-    timed(phase_moe_gmm, torch, g2, (("bfloat16", (1280,)),))
-    timed(phase_moe_gmm_bwd, torch, g2, (("bfloat16", (1280,)),))
+    g2_moe = timed(phase_moe_gmm, torch, g2, (("bfloat16", (1280,)),))[0]
+    g2_moe_bwd = timed(phase_moe_gmm_bwd, torch, g2,
+                       (("bfloat16", (1280,)),))[0]
     timed(phase_ssm_scan, torch, (
         (f"hymba chunk, {rank2}, carried state", 1, 256, h2.d_inner,
          h2.ssm_state, True),))
@@ -2117,6 +2374,10 @@ def main() -> int:
         (f"hymba chunk, {rank2}, carried state", 1, 256, h2.d_inner,
          h2.ssm_state, True),))
     timed(phase_tp_train, torch, cfg, hymba, smi)
+    # expert parallelism under autograd (phase 20): the EP round forward
+    # and backward on one NCCL rank against moe_apply, then two expert
+    # ranks training full-width granite on the one card over gloo
+    ep_rows = timed(phase_ep_train, torch, cfg, smi)
 
     moe_main = next(r for r in moe_rows
                     if r["C"] == 8 and r["dtype"] == "bfloat16")
@@ -2203,6 +2464,36 @@ def main() -> int:
          "bound_ms": ssm_bwd_main["bound_ms"],
          "bound_by": ssm_bwd_main["bound_by"], "library_ms": None},
     ]
+    # the EP path's kernels (phase 20): (a) one launch of each per round
+    # at an expert axis of 1 (E 32), (b) one expert rank of 2 (E 16), its
+    # launches per step
+    ep_round_bf16 = next(r for r in ep_rows if r["check"] == "round"
+                         and r["dtype"] == "bfloat16")
+    moe_c1280 = next(r for r in moe_rows
+                     if r["C"] == 1280 and r["dtype"] == "bfloat16")
+    ep_cases = [(name, src_row, ep_round_bf16["launches_per_round"][name],
+                 "E=32 C=1280 d=1024 f=512 bf16 (the EP round under "
+                 "autograd at an expert axis of 1, a training microbatch "
+                 "of 4096 tokens, launches per round)")
+                for name, src_row in (("moe_gmm", moe_c1280),
+                                      ("moe_gmm_bwd", moe_bwd_main))]
+    ep_rank = next((r for r in ep_rows if r["check"] == "bf16"), None)
+    if ep_rank is not None:
+        ep_cases += [(name, src_row, ep_rank["launches"][0][name],
+                      "E=16 C=1280 d=1024 f=512 bf16 (expert rank 0 of 2, "
+                      "granite-moe-1b-a400m train step, launches per step)")
+                     for name, src_row in (("moe_gmm", g2_moe),
+                                           ("moe_gmm_bwd", g2_moe_bwd))]
+    for name, src_row, n, shape in ep_cases:
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/moe_gmm.cu",
+            "replaces": "src/repro/kernels/moe_dispatch/moe_gmm.py:62",
+            "launches": n, "shape": shape,
+            "max_abs_err": src_row["max_abs_err"], "ms": src_row["kernel_ms"],
+            "plain_ms": src_row["plain_ms"], "bound_ms": src_row["bound_ms"],
+            "bound_by": src_row["bound_by"],
+            "library_ms": src_row["library_ms"]})
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} never launched on its path")

@@ -6,9 +6,11 @@ The reference counts its collectives in the compiled HLO
 it counts them where it issues them: every method of :class:`Collectives`
 makes one ``torch.distributed`` call and adds one to its kind's count.
 A train step makes one :class:`Collectives` per call over the data ranks
-and returns its ``counts`` in the step's metrics, and one over the model
+and returns its ``counts`` in the step's metrics, one over the model
 ranks (:func:`model_comm`) whose counts it returns apart, as
-``metrics["tp_collectives"]``; the EP round makes one per round.
+``metrics["tp_collectives"]``, and one over the expert ranks
+(:func:`expert_comm`), as ``metrics["ep_collectives"]``; the EP round
+makes one per round when it is not given one.
 
 Tensor parallelism (the ``"model"`` mesh axis) is Megatron's: the
 activations are whole on every model rank, a column-parallel matmul takes
@@ -18,6 +20,21 @@ through :func:`reduce_from_tp` (all-reduce forward, identity backward).
 Each function keeps its :class:`Collectives` in the autograd context, so
 a backward (on the autograd engine's thread) and a rematerialised forward
 issue and count through the same object as the forward did.
+
+Expert parallelism (the ``"expert"`` axis) under autograd is the
+counterpart of what ``jax.grad`` does to the reference's ``shard_map``:
+the expert ranks hold the same token matrix, each takes its block of
+rows into the round (:func:`slice_to_ep`: the block's gradient is
+all-gathered backward, since the upstream layers run alike on every
+rank and need the whole of it), the lane exchange is an all-to-all whose
+backward is the same exchange of the gradient (:func:`exchange_ep`; the
+permutation is its own inverse), and the shards' outputs leave through
+an all-gather whose backward keeps this rank's block of the gradient and
+issues nothing (:func:`gather_from_ep`: the loss downstream is the same
+on every rank).  The router enters the round replicated, so its gradient
+is partial on each expert rank; the train step sums it over the expert
+ranks once per step, with the step-end sync (one all-reduce per step in
+place of one per layer and microbatch).
 
 All reductions are sums unless ``op="max"`` (gloo has no average);
 callers divide.
@@ -29,6 +46,8 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+
+from .sharding import EXPERT_AXIS, expert_axis_size, require_executable
 
 KINDS = ("all_reduce", "reduce_scatter", "all_gather", "all_to_all",
          "send_recv")
@@ -106,6 +125,21 @@ class Collectives:
         for work in dist.batch_isend_irecv(ops):
             work.wait()
         self.counts["send_recv"] += 1
+
+
+def expert_comm(mesh, cfg) -> Optional[Collectives]:
+    """A :class:`Collectives` over ``mesh``'s ``"expert"`` axis when
+    ``cfg``'s MoE layers take the EP round on it (the config opts into
+    ``expert_parallel`` and the axis, larger than 1, divides E), else
+    None.  Raises where the round does not run (a model axis larger than
+    1 beside it: ``require_executable(mesh, "ep")``)."""
+    if mesh is None or not getattr(cfg, "expert_parallel", False):
+        return None
+    S = expert_axis_size(mesh)
+    if S <= 1 or cfg.n_experts % S:
+        return None
+    require_executable(mesh, "ep")
+    return Collectives(mesh.get_group(EXPERT_AXIS))
 
 
 def model_comm(mesh) -> Optional[Collectives]:
@@ -189,3 +223,68 @@ def share_kv(w: torch.Tensor, tp: Optional[Collectives], head: int,
     """``w``, one KV head's weight that the ranks reading head ``head`` of
     ``n_heads`` hold alike; its gradient summed over those ranks."""
     return w if tp is None else _ShareKV.apply(w, tp, head, n_heads)
+
+
+# ---------------------------------------------------------------------------
+# The expert-parallel region (the EP round under autograd)
+# ---------------------------------------------------------------------------
+
+
+class _SliceToEP(torch.autograd.Function):
+    """This rank's block of rows; backward, the blocks' gradients
+    all-gathered (each rank's block is the whole gradient of its rows)."""
+
+    @staticmethod
+    def forward(ctx, x, ep):
+        ctx.ep = ep
+        n = x.shape[0] // ep.size
+        return x[ep.rank * n:(ep.rank + 1) * n]
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.ep.all_gather(g), None
+
+
+class _ExchangeEP(torch.autograd.Function):
+    """The lane all-to-all; backward, the same all-to-all of the gradient."""
+
+    @staticmethod
+    def forward(ctx, buf, ep):
+        ctx.ep = ep
+        return ep.all_to_all(buf)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.ep.all_to_all(g), None
+
+
+class _GatherFromEP(torch.autograd.Function):
+    """Every rank's rows stacked rank-major; backward, this rank's block
+    of the gradient, no collective (the loss downstream is replicated)."""
+
+    @staticmethod
+    def forward(ctx, y, ep):
+        ctx.ep, ctx.n = ep, y.shape[0]
+        return ep.all_gather(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        r, n = ctx.ep.rank, ctx.n
+        return g[r * n:(r + 1) * n], None
+
+
+def slice_to_ep(x: torch.Tensor, ep: Collectives) -> torch.Tensor:
+    """Enter the expert region: rows ``[s·T/S, (s+1)·T/S)`` of ``x`` for
+    expert rank ``s`` of ``S``, their gradient all-gathered backward."""
+    return _SliceToEP.apply(x, ep)
+
+
+def exchange_ep(buf: torch.Tensor, ep: Collectives) -> torch.Tensor:
+    """The lane all-to-all over ``ep``'s ranks, differentiable."""
+    return _ExchangeEP.apply(buf, ep)
+
+
+def gather_from_ep(y: torch.Tensor, ep: Collectives) -> torch.Tensor:
+    """Leave the expert region: the ranks' rows all-gathered; backward,
+    this rank's block of the gradient."""
+    return _GatherFromEP.apply(y, ep)

@@ -24,7 +24,10 @@ Param rules (per tensor role, by pytree path), as in the reference:
 What the port executes: the fsdp axes (``("pod", "data")``) shard the
 batch and, under the ``afe`` policies, the optimizer state
 (:class:`FsdpLayout`, ``train/train_step.py``); the expert axis carries
-the EP round (:mod:`repro_torch.ep`); the ``"model"`` axis is Megatron
+the EP round (:mod:`repro_torch.ep`), and in training each expert rank
+holds its ``E/S`` experts and their optimizer state
+(:func:`tp_local_params` with ``axis="expert"``: the reference's
+``(EXPERT, fa, M)`` spec), every other leaf whole; the ``"model"`` axis is Megatron
 tensor parallelism inside the layers (:mod:`repro_torch.distributed.comm`'s
 ``copy_to_tp`` / ``reduce_from_tp``).  The specs above are the
 reference's *storage* layout and stay as they are; what a model rank
@@ -106,17 +109,21 @@ def _model_size(mesh) -> int:
 
 def require_executable(mesh, what: str) -> None:
     """Raise ``NotImplementedError`` for what the port does not run on
-    ``mesh``: ``what="train"`` refuses an expert axis larger than 1 (EP
-    under autograd); ``what="serve"`` (decode and prefill steps, hence the
-    batcher) and ``what="ep"`` (the EP round) refuse a model axis larger
-    than 1 (tensor-parallel serving; experts split over both axes)."""
+    ``mesh``: ``what="train"`` refuses an expert axis larger than 1
+    together with a model axis larger than 1 (the reference's ``(expert,
+    data, model)`` production layout); ``what="serve"`` (decode and
+    prefill steps, hence the batcher) and ``what="ep"`` (the EP round)
+    refuse a model axis larger than 1 (tensor-parallel serving; experts
+    split over both axes)."""
     if mesh is None:
         return
-    if what == "train" and expert_axis_size(mesh) > 1:
+    if what == "train" and expert_axis_size(mesh) > 1 and \
+            _model_size(mesh) > 1:
         raise NotImplementedError(
-            "a train step on a mesh with an expert axis (EP under "
-            "autograd) is not ported yet (ROADMAP Queue 1: EP under "
-            "autograd)")
+            f"a train step on a mesh with an expert axis of size "
+            f"{expert_axis_size(mesh)} and a 'model' axis of size "
+            f"{_model_size(mesh)} is not ported yet (ROADMAP Queue 1: EP "
+            "with a model axis)")
     if what in ("serve", "ep") and _model_size(mesh) > 1:
         raise NotImplementedError(
             f"a 'model' mesh axis of size {_model_size(mesh)} under "
@@ -416,15 +423,33 @@ def _tp_rule(path: str, cfg, m: int) -> tuple:
     return ("rep",)                                 # norms
 
 
-def _map_rules(tree, cfg, m: int, fn, path=""):
+def _ep_rule(path: str, cfg, S: int) -> tuple:
+    """How one leaf lies over ``S`` expert ranks: an EP config's experts
+    (``w1``/``w3``/``w2``) ``("split", -3, 1)``, E over the ranks; its
+    router ``("sum",)``, whole on every rank, its gradient partial (each
+    rank's tokens' share) until summed over the ranks; every other leaf
+    ``("rep",)``, whole and computed alike on every rank."""
+    keys = path.strip("/").split("/")
+    if "moe" not in keys or not getattr(cfg, "expert_parallel", False) \
+            or S <= 1 or cfg.n_experts % S:
+        return ("rep",)
+    return ("sum",) if keys[-1] == "router" else ("split", -3, 1)
+
+
+def _rule(path: str, cfg, m: int, axis: str) -> tuple:
+    return _tp_rule(path, cfg, m) if axis == "model" else \
+        _ep_rule(path, cfg, m)
+
+
+def _map_rules(tree, cfg, m: int, fn, path="", axis: str = "model"):
     if isinstance(tree, dict):
-        return {k: _map_rules(v, cfg, m, fn, f"{path}/{k}")
+        return {k: _map_rules(v, cfg, m, fn, f"{path}/{k}", axis)
                 for k, v in tree.items()}
-    return fn(tree, _tp_rule(path, cfg, m))
+    return fn(tree, _rule(path, cfg, m, axis))
 
 
 def _cut(t, rule, rank: int, m: int, cfg):
-    if rule[0] == "rep":
+    if rule[0] in ("rep", "sum"):
         return t.clone()
     d = rule[1] % t.ndim
     if rule[0] == "kv":
@@ -434,13 +459,13 @@ def _cut(t, rule, rank: int, m: int, cfg):
     groups, n = rule[2], t.shape[d]
     if n % (groups * m):
         raise ValueError(f"dim {n} of a {tuple(t.shape)} leaf does not "
-                         f"split over {m} model ranks")
+                         f"split over {m} ranks")
     return t.unflatten(d, (groups, m, n // (groups * m))).select(d + 1, rank) \
         .flatten(d, d + 1).clone(memory_format=torch.contiguous_format)
 
 
 def _join(pieces, rule, m: int, cfg):
-    if rule[0] == "rep":
+    if rule[0] in ("rep", "sum"):
         return pieces[0]
     d = rule[1] % pieces[0].ndim
     if rule[0] == "kv":
@@ -452,17 +477,19 @@ def _join(pieces, rule, m: int, cfg):
                        d + 1).flatten(d, d + 2)
 
 
-def tp_local_params(params, cfg, rank: int, size: int):
-    """Model rank ``rank`` of ``size``'s compute shards of a whole param
-    tree, as contiguous copies (the kernels check 16-byte alignment);
-    the whole tree copied when ``size`` is 1.  Works on meta tensors
-    (shapes only)."""
+def tp_local_params(params, cfg, rank: int, size: int,
+                    axis: str = "model"):
+    """Rank ``rank`` of ``size``'s compute shards of a whole param tree
+    over the ``axis`` mesh axis (``"model"``, or ``"expert"``: an EP
+    config's ``E/S`` experts, everything else whole), as contiguous
+    copies (the kernels check 16-byte alignment); the whole tree copied
+    when ``size`` is 1.  Works on meta tensors (shapes only)."""
     return _map_rules(params, cfg, size,
-                      lambda t, r: _cut(t, r, rank, size, cfg))
+                      lambda t, r: _cut(t, r, rank, size, cfg), axis=axis)
 
 
-def tp_assemble(pieces: list, cfg):
-    """The whole tree from every model rank's :func:`tp_local_params`
+def tp_assemble(pieces: list, cfg, axis: str = "model"):
+    """The whole tree from every rank's :func:`tp_local_params`
     (``pieces[r]``: rank ``r``'s tree): the inverse, bit for bit."""
     m = len(pieces)
 
@@ -470,36 +497,43 @@ def tp_assemble(pieces: list, cfg):
         if isinstance(nodes[0], dict):
             return {k: walk([n[k] for n in nodes], f"{path}/{k}")
                     for k in nodes[0]}
-        return _join(nodes, _tp_rule(path, cfg, m), m, cfg)
+        return _join(nodes, _rule(path, cfg, m, axis), m, cfg)
 
     return walk(pieces, "")
 
 
-def tp_gather_params(local, cfg, comm):
-    """The whole tree on every model rank from each rank's compute shards
+def tp_gather_params(local, cfg, comm, axis: str = "model"):
+    """The whole tree on every rank from each rank's compute shards
     (``comm``: a :class:`~repro_torch.distributed.comm.Collectives` over
-    the model axis; one all-gather per leaf that is not replicated)."""
+    the ``axis`` ranks; one all-gather per leaf that is split)."""
     m = comm.size
 
     def fn(t, rule):
-        if rule[0] == "rep":
+        if rule[0] in ("rep", "sum"):
             return t.clone()
         return _join(list(comm.all_gather(t.detach()[None]).unbind(0)),
                      rule, m, cfg)
 
-    return _map_rules(local, cfg, m, fn)
+    return _map_rules(local, cfg, m, fn, axis=axis)
 
 
-def tp_owned(params, cfg, rank: int, size: int):
-    """Per leaf, whether model rank ``rank``'s copy counts once in a sum
-    over the model ranks (the gradient norm): every rank's piece of a
-    split leaf, rank 0's copy of a replicated one, the first holder's of
-    a KV head that several ranks hold."""
+def tp_owned(params, cfg, rank: int, size: int, axis: str = "model"):
+    """Per leaf, whether rank ``rank``'s copy counts once in a sum over
+    the ``axis`` ranks (the gradient norm): every rank's piece of a split
+    leaf, rank 0's copy of a replicated one, the first holder's of a KV
+    head that several ranks hold."""
     def fn(_, rule):
-        if rule[0] == "rep":
+        if rule[0] in ("rep", "sum"):
             return rank == 0
         if rule[0] == "kv":
             return rank % (size // cfg.n_kv_heads) == 0
         return True
 
-    return _map_rules(params, cfg, size, fn)
+    return _map_rules(params, cfg, size, fn, axis=axis)
+
+
+def ep_summed(params, cfg, size: int):
+    """Per leaf, whether its gradient is partial on each of ``size``
+    expert ranks and is summed over them (an EP config's router)."""
+    return _map_rules(params, cfg, size, lambda _, r: r[0] == "sum",
+                      axis="expert")

@@ -12,6 +12,10 @@ shard ``j``; after the exchange, block ``i`` of the result is the lane
 ``shard_map``; here every expert shard is a process and ``comm`` (a
 :class:`~repro_torch.distributed.comm.Collectives` over the expert group)
 issues and counts the calls.
+
+Both are differentiable: the exchange is a permutation of lane blocks
+that is its own inverse, so its backward is the same exchange of the
+gradient (one more ``all_to_all``, or one more ring).
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from ..distributed.comm import exchange_ep
 # distributed.sharding owns both the axis name and "does this mesh
 # carve it, how wide" (expert_axis_size: 0 when absent); re-exported
 # here so EP callers have one import surface.
@@ -44,15 +49,16 @@ def exchange(buf: torch.Tensor, n_shards: int, *, comm,
     ``impl="all_to_all"`` — one ``all_to_all_single``;
     ``impl="ppermute"`` — an ``S - 1``-step rotation ring (one
     ``batch_isend_irecv`` per step) that moves identical bytes.
+    Backward, the same exchange runs on the gradient.
     """
     if buf.shape[0] % n_shards != 0:
         raise ValueError(
             f"lane buffer dim {buf.shape[0]} not divisible by "
             f"{n_shards} shards")
     if impl == "all_to_all":
-        return comm.all_to_all(buf)
+        return exchange_ep(buf, comm)
     if impl == "ppermute":
-        return _exchange_ppermute(buf, n_shards, comm)
+        return _Ring.apply(buf, n_shards, comm)
     raise ValueError(f"unknown exchange impl {impl!r}; "
                      "choose all_to_all or ppermute")
 
@@ -73,6 +79,20 @@ def _exchange_ppermute(buf: torch.Tensor, n_shards: int,
         comm.send_recv(buf[dst * C:(dst + 1) * C], dst,
                        out[src * C:(src + 1) * C], src)
     return out
+
+
+class _Ring(torch.autograd.Function):
+    """The rotation ring; backward, the ring on the gradient (the
+    exchange is its own inverse)."""
+
+    @staticmethod
+    def forward(ctx, buf, n_shards, comm):
+        ctx.n_shards, ctx.comm = n_shards, comm
+        return _exchange_ppermute(buf, n_shards, comm)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange_ppermute(g, ctx.n_shards, ctx.comm), None, None
 
 
 def token_shards(T: int, E: int, mesh) -> Optional[int]:

@@ -24,7 +24,14 @@ The reference runs the legs inside one ``shard_map``; here each expert
 shard is a process of the expert group.  Every rank is given the whole
 ``(T, d)`` token matrix (the reference's global array), takes its ``T/S``
 rows and its ``E/S`` experts' weights, and the round ends with the
-shards' outputs all-gathered back to ``(T, d)`` and their stats summed.
+shards' outputs all-gathered back to ``(T, d)`` (and, when asked for,
+their stats summed).  The round is differentiable, as the reference's
+``shard_map`` is under ``jax.grad``: its collectives are the autograd
+functions of :mod:`repro_torch.distributed.comm` (the exchanges run
+again on the gradients, the token block's gradient is all-gathered, the
+output gather's backward issues nothing) and, on the card, each shard's
+expert FFN goes through ``moe_gmm``'s autograd function, so the backward
+launches ``moe_gmm_bwd`` once per shard and round.
 
 AFE is the synchronization story: the whole round is one bulk step with
 a single logical barrier.  :func:`ep_round` runs each round under a DCAFE
@@ -42,7 +49,9 @@ from typing import Optional
 
 import torch
 
-from ..distributed.comm import Collectives, mesh_group
+from ..distributed.comm import (
+    Collectives, gather_from_ep, mesh_group, slice_to_ep,
+)
 from ..distributed.sharding import require_executable
 from ..kernels.moe_dispatch.ops import (
     combine_tokens, dispatch_tokens, expert_ffn,
@@ -61,22 +70,17 @@ from .collective import EXPERT_AXIS, exchange, expert_axis_size
 from .plan import lane_capacity
 
 
-def _ep_shard(x, router, w1, w3, w2, *, comm, E: int, S: int, K: int,
-              C_lane: int, C_local: int, act: str, use_kernel: bool,
-              impl: str, reassign: bool, dead_shards: tuple = ()):
-    """One expert shard's slice of the dispatch round: ``x`` its
-    ``(T/S, d)`` tokens, ``w1``/``w3``/``w2`` its ``E/S`` experts.
-
-    Returns ``(y_local, stats_row)`` where ``stats_row`` is the shard's
-    ``[sent, received, reassigned, admitted]`` counts.
-    """
+def _ep_pack(x, router, *, E: int, S: int, K: int, C_lane: int,
+             reassign: bool, dead_shards: tuple = ()):
+    """Leg 1 of one expert shard: route its ``(T/S, d)`` tokens ``x``
+    against the replicated ``router``, plan the lanes (DLBC reassignment
+    under ``reassign``) and pack them.  Returns ``(sendx, plan)``:
+    ``sendx`` the ``(S·C_lane, d + 1)`` lane buffer (block ``j`` for
+    shard ``j``; column ``d`` the +1-encoded local expert id, which
+    carries no gradient), ``plan`` what :func:`_ep_combine` needs."""
     Tl, d = x.shape
     E_local = E // S
     lane_cap = ExpertCapacityProvider(n_experts=S, slots_per_expert=C_lane)
-    local_cap = ExpertCapacityProvider(n_experts=E_local,
-                                       slots_per_expert=C_local)
-
-    # --- leg 1: shard-local route + DLBC lane plan ----------------------
     gates, ids, probs = route(x, router, K)          # (Tl, K)
     dest = ids // E_local                            # destination shard
     pos = _positions_in_expert(dest, S)              # rank in my lane
@@ -102,7 +106,6 @@ def _ep_shard(x, router, w1, w3, w2, *, comm, E: int, S: int, K: int,
         ids_f, dest_f, pos_f, keep, gates_f = ids, dest, pos, keep1, gates
         overflow = ~keep1
 
-    # --- pack lanes + dispatch all-to-all -------------------------------
     slot = dest_f * C_lane + torch.clamp(pos_f, max=C_lane - 1)  # (Tl, K)
     # The local expert id rides the exchange as payload column d, encoded
     # +1 so an untouched row reads 0 ("empty"), so the dispatch leg stays
@@ -116,11 +119,21 @@ def _ep_shard(x, router, w1, w3, w2, *, comm, E: int, S: int, K: int,
     sendx = torch.zeros((S * C_lane + 1, d + 1), dtype=x.dtype,
                         device=x.device)
     sendx[target] = payload.reshape(Tl * K, d + 1)
-    recv = exchange(sendx[:S * C_lane], S, comm=comm, impl=impl)
-    recvx = recv[:, :d]
-    recv_eid = recv[:, d].long() - 1                 # -1 = empty row
+    return sendx[:S * C_lane], (slot, gates_f, keep, overflow)
 
-    # --- leg 3: local admission + expert FFN ----------------------------
+
+def _ep_experts(recv, w1, w3, w2, *, C_local: int, act: str,
+                use_kernel: bool):
+    """Leg 3: admit the received rows into the local ``(E/S, C_local, d)``
+    capacity buffers and run the expert FFN (``moe_gmm`` on the card).
+    Returns ``(y_recv, valid, keep_loc)``: the results in lane layout,
+    the rows that carried a pair and the pairs admitted."""
+    d = recv.shape[1] - 1
+    E_local = w1.shape[0]
+    local_cap = ExpertCapacityProvider(n_experts=E_local,
+                                       slots_per_expert=C_local)
+    recvx = recv[:, :d]
+    recv_eid = recv[:, d].detach().long() - 1        # -1 = empty row
     valid = recv_eid >= 0
     rids = torch.clamp(recv_eid, min=0)
     rpos = _positions_in_expert(
@@ -130,26 +143,47 @@ def _ep_shard(x, router, w1, w3, w2, *, comm, E: int, S: int, K: int,
                                     rpos[:, None], E_local, C_local)
     out = expert_ffn(buf, {"w1": w1, "w3": w3, "w2": w2}, act,
                      use_kernel=use_kernel)
-    ones = torch.ones(keep_loc.shape, dtype=recvx.dtype, device=x.device)
-    y_recv = combine_tokens(out, slot_loc, ones, keep_loc)   # (S·C_lane, d)
+    ones = torch.ones(keep_loc.shape, dtype=recvx.dtype, device=recv.device)
+    return combine_tokens(out, slot_loc, ones, keep_loc), valid, keep_loc
 
-    # --- leg 4: combine all-to-all + gate-combine -----------------------
+
+def _ep_combine(backx, plan, dtype):
+    """Leg 4's gate-combine: each pair's result, filed back under the slot
+    it was packed from, weighted by its gate, summed in token order."""
+    slot, gates_f, keep, _ = plan
+    Tl, K = slot.shape
+    gathered = backx[slot.reshape(-1)].reshape(Tl, K, backx.shape[1])
+    return torch.einsum("tkd,tk->td", gathered, (gates_f * keep).to(dtype))
+
+
+def _ep_shard(x, router, w1, w3, w2, *, comm, E: int, S: int, K: int,
+              C_lane: int, C_local: int, act: str, use_kernel: bool,
+              impl: str, reassign: bool, dead_shards: tuple = ()):
+    """One expert shard's slice of the dispatch round: ``x`` its
+    ``(T/S, d)`` tokens, ``w1``/``w3``/``w2`` its ``E/S`` experts.
+
+    Returns ``(y_local, stats_row)`` where ``stats_row`` is the shard's
+    ``[sent, received, reassigned, admitted]`` counts.
+    """
+    sendx, plan = _ep_pack(x, router, E=E, S=S, K=K, C_lane=C_lane,
+                           reassign=reassign, dead_shards=dead_shards)
+    recv = exchange(sendx, S, comm=comm, impl=impl)
+    y_recv, valid, keep_loc = _ep_experts(recv, w1, w3, w2, C_local=C_local,
+                                          act=act, use_kernel=use_kernel)
     # The exchange is its own inverse on lane layout: block i of y_recv
     # holds results for source i's lane, so one more exchange files each
     # shard's own lane results back under the slots it packed them from.
-    backx = exchange(y_recv, S, comm=comm, impl=impl)
-    gathered = backx[slot.reshape(-1)].reshape(Tl, K, d)
-    w = (gates_f * keep).to(x.dtype)
-    y = torch.einsum("tkd,tk->td", gathered, w)
-
+    y = _ep_combine(exchange(y_recv, S, comm=comm, impl=impl), plan,
+                    x.dtype)
+    _, _, keep, overflow = plan
     stats_row = torch.stack([
         torch.sum(keep), torch.sum(valid), torch.sum(overflow & keep),
         torch.sum(keep_loc)]).to(torch.int64)
     return y, stats_row
 
 
-def ep_dispatch_combine(p: dict, cfg, x, *, mesh, use_kernel: bool = True,
-                        impl: str = "all_to_all",
+def ep_dispatch_combine(p: dict, cfg, x, *, mesh=None,
+                        use_kernel: bool = True, impl: str = "all_to_all",
                         return_stats: bool = False,
                         dead_shards: tuple = (), comm=None):
     """Expert-parallel dispatch → FFN → combine over the ``expert`` axis.
@@ -159,17 +193,28 @@ def ep_dispatch_combine(p: dict, cfg, x, *, mesh, use_kernel: bool = True,
     % S == 0`` for the expert axis's size ``S`` (``S = 1`` runs the round
     on one rank).  ``comm`` (a
     :class:`~repro_torch.distributed.comm.Collectives` over the expert
-    group, made here when not given) issues and counts the collectives.
+    group) issues and counts the collectives; without it one is made over
+    ``mesh``'s expert axis.  ``p``'s expert weights are whole (E; this
+    rank's ``E/S`` are sliced out) or already this rank's (``E/S``, the
+    training layout).
+
+    Differentiable: backward, the two exchanges run again on the
+    gradients (``moe_gmm_bwd`` per shard in between on the card), the
+    token block's gradient is all-gathered, and the router's gradient is
+    this rank's partial sum (its tokens' share), left for the caller to
+    sum over the expert group (the train step does, once per step).
+    ``return_stats`` costs one more all-reduce (the stats' sums).
 
     ``dead_shards`` runs the round DEGRADED: the listed shards' lanes are
     closed at admission, so their traffic re-routes to live shards (DLBC)
     or drops (LC) before the collective — see :func:`ep_round` for the
     retry loop that discovers the dead set.
     """
-    require_executable(mesh, "ep")
+    if mesh is not None:
+        require_executable(mesh, "ep")
     T, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
-    S = expert_axis_size(mesh)
+    S = comm.size if comm is not None else expert_axis_size(mesh)
     if S < 1 or T % S or E % S:
         raise ValueError(
             f"EP dispatch needs an expert axis dividing T={T} and "
@@ -196,17 +241,22 @@ def ep_dispatch_combine(p: dict, cfg, x, *, mesh, use_kernel: bool = True,
                 f"exactly in {x.dtype} (max {max_exact}); cast tokens "
                 "to a wider dtype for EP dispatch")
     comm = comm or Collectives(mesh_group(mesh, EXPERT_AXIS))
-    s, El, Tl = comm.rank, E // S, T // S
-    experts = slice(s * El, (s + 1) * El)
+    El = E // S
+    n = p["w1"].shape[-3]
+    if n not in (E, El):
+        raise ValueError(f"expert weights hold {n} experts: neither E={E} "
+                         f"nor this rank's E/S={El}")
+    experts = slice(comm.rank * El, (comm.rank + 1) * El) if n != El \
+        else slice(None)
     y, stats_row = _ep_shard(
-        x[s * Tl:(s + 1) * Tl], p["router"].float(), p["w1"][experts],
+        slice_to_ep(x, comm), p["router"].float(), p["w1"][experts],
         p["w3"][experts], p["w2"][experts], comm=comm, E=E, S=S, K=K,
         C_lane=C_lane, C_local=C_local, act=cfg.act, use_kernel=use_kernel,
         impl=impl,
         # "lc" keeps its static single-round semantics on the EP substrate
         # too (no reassignment), so the LC-vs-DLBC comparison holds
         reassign=cfg.moe_dispatch != "lc", dead_shards=dead_shards)
-    y = comm.all_gather(y)
+    y = gather_from_ep(y, comm)
     if not return_stats:
         return y
     sent, received, reassigned, admitted = comm.all_reduce(stats_row)

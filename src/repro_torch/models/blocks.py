@@ -40,9 +40,10 @@ def layer_init(gen: torch.Generator, cfg, dtype, kind: str) -> dict:
     return out
 
 
-def _ffn(p: dict, cfg, h: torch.Tensor, kind: str, tp=None) -> torch.Tensor:
+def _ffn(p: dict, cfg, h: torch.Tensor, kind: str, tp=None,
+         ep=None) -> torch.Tensor:
     if kind == "moe":
-        return M.moe_apply(p["moe"], cfg, h, tp=tp)
+        return M.moe_apply(p["moe"], cfg, h, tp=tp, ep=ep)
     return L.mlp_apply(p["mlp"], h, cfg.act, tp)
 
 
@@ -50,10 +51,11 @@ def layer_apply(p: dict, cfg, x: torch.Tensor, kind: str, *,
                 ctx: Optional[torch.Tensor] = None,
                 causal: bool = True, schedule: str = "masked",
                 q_chunk: int = 1024, k_chunk: int = 1024,
-                ssm_chunk: int = 256, tp=None) -> torch.Tensor:
+                ssm_chunk: int = 256, tp=None, ep=None) -> torch.Tensor:
     """One block forward (whole sequence); ``ctx`` (B, T, d) is what the
     ``dec`` and ``cross`` kinds attend to.  ``tp``: a model-axis
-    ``Collectives`` when ``p`` is one model rank's compute shards."""
+    ``Collectives`` when ``p`` is one model rank's compute shards; ``ep``:
+    an expert-axis one when the MoE layer takes the EP round."""
     h = L.norm_apply(p["ln1"], x, cfg.norm)
     if kind == "ssm":
         return x + S.ssm_apply(p["ssm"], cfg, h, chunk=ssm_chunk, tp=tp)
@@ -71,7 +73,7 @@ def layer_apply(p: dict, cfg, x: torch.Tensor, kind: str, *,
         x = x + L.attn_apply(p["cross"], cfg, h, kv_src=ctx, causal=False,
                              **akw)
     h = L.norm_apply(p["ln2"], x, cfg.norm)
-    return x + _ffn(p, cfg, h, kind, tp)
+    return x + _ffn(p, cfg, h, kind, tp, ep)
 
 
 def layer_decode_apply(p: dict, cfg, x: torch.Tensor, cache: dict,

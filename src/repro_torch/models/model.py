@@ -34,7 +34,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device, torch_dtype
-from ..distributed.comm import copy_to_tp, model_comm, reduce_from_tp
+from ..distributed.comm import (
+    copy_to_tp, expert_comm, model_comm, reduce_from_tp,
+)
 from ..distributed.sharding import (
     current_mesh, require_executable, shard_act, shard_logits,
 )
@@ -195,7 +197,7 @@ def _n_layers(stack: dict) -> int:
 def forward(params: dict, cfg: ModelConfig, batch: dict, *,
             schedule: str = "masked", q_chunk: int = 1024,
             k_chunk: int = 1024, ssm_chunk: int = 256, remat: bool = True,
-            last_only: bool = False, tp=None) -> torch.Tensor:
+            last_only: bool = False, tp=None, ep=None) -> torch.Tensor:
     """Logits for (B, S) tokens; encdec also reads ``batch["enc_frames"]``
     (B, enc_seq, d), run through the non-causal encoder into the
     decoder's cross attention, and vlm ``batch["vis_embed"]`` (B, vis_seq,
@@ -222,12 +224,20 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     ``tp``: the model-axis ``Collectives`` the tensor-parallel layers
     issue and count through; by default one over the current mesh's
     model axis when it is larger than 1 (then ``params`` are this rank's
-    compute shards and the logits its vocab shard), else None."""
+    compute shards and the logits its vocab shard), else None.  ``ep``:
+    the expert-axis ``Collectives`` the MoE layers' EP round issues and
+    counts through; by default :func:`~repro_torch.distributed.comm.
+    expert_comm` of the current mesh (then ``params`` may hold this
+    rank's ``E/S`` experts).  Both are handed to every layer, so that a
+    ``remat`` recompute, which runs where the mesh context is unset,
+    takes the same path."""
     if tp is None:
         tp = model_comm(current_mesh())
+    if ep is None:
+        ep = expert_comm(current_mesh(), cfg)
     x = shard_act(_embed(params, batch["tokens"], tp))
     kw = dict(schedule=schedule, q_chunk=q_chunk, k_chunk=k_chunk,
-              ssm_chunk=ssm_chunk, tp=tp)
+              ssm_chunk=ssm_chunk, tp=tp, ep=ep)
     layer = B.layer_apply
     if remat and torch.is_grad_enabled():
         def layer(*a, **k):

@@ -15,7 +15,9 @@ dispatch/FFN/combine mechanics are in
 :mod:`repro_torch.kernels.moe_dispatch.ops`, whose SwiGLU expert FFN
 runs the grouped-matmul kernel by default.  A config with
 ``expert_parallel`` under a mesh whose expert axis divides E takes the
-expert-parallel round instead (:mod:`repro_torch.ep`).
+expert-parallel round instead (:mod:`repro_torch.ep`), differentiable,
+over the expert group the caller passes (``ep``) or, without it, the
+current mesh's.
 
 On a ``"model"`` mesh axis of ``m`` ranks (``tp``), routing, capacity and
 the DLBC re-route run whole and alike on every rank (the router is
@@ -33,8 +35,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..distributed.comm import copy_to_tp, reduce_from_tp
-from ..distributed.sharding import current_mesh, expert_axis_size
+from ..distributed.comm import copy_to_tp, expert_comm, reduce_from_tp
+from ..distributed.sharding import current_mesh
 from ..kernels.moe_dispatch.ops import dispatch_combine
 from ..sched import ExpertCapacityProvider
 from .layers import _norm_init
@@ -124,36 +126,41 @@ def route(x: torch.Tensor, router_w: torch.Tensor, top_k: int):
 
 
 def moe_apply(p: dict, cfg, x: torch.Tensor,
-              return_stats: bool = False, use_kernel: bool = True, tp=None):
+              return_stats: bool = False, use_kernel: bool = True, tp=None,
+              ep=None):
     """x: (B, S, d) or (T, d).  Dispatch per ``cfg.moe_dispatch``; the
     SwiGLU expert FFN runs the grouped-matmul kernel unless
     ``use_kernel=False`` (the reference's einsum path).  With ``tp`` (a
     model-axis ``Collectives``) ``p`` holds this rank's compute shards of
-    the experts."""
+    the experts.  With ``ep`` (an expert-axis ``Collectives``, as
+    :func:`repro_torch.distributed.comm.expert_comm` gives it) the layer
+    takes the EP round over ``ep``'s ranks, ``p``'s experts whole or this
+    rank's ``E/S``; without it, a config with ``expert_parallel`` takes
+    the round over the current mesh's expert axis (the serving path).
+    The caller passes ``ep`` where the mesh context may be unset: a
+    ``remat`` recompute runs on the autograd engine's thread."""
     orig_shape = x.shape
     if x.ndim == 3:
         x = x.reshape(-1, x.shape[-1])
     T, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
-    if cfg.expert_parallel:
-        # Expert-parallel all-to-all dispatch (repro_torch.ep): taken when
-        # the current mesh carves an "expert" axis larger than 1 whose size
-        # divides E.  A token count not divisible by S is zero-padded up
-        # to the next multiple and sliced back.
-        mesh = current_mesh()
-        S = expert_axis_size(mesh)
-        if S > 1 and E % S == 0:
-            from ..ep.dispatch import ep_dispatch_combine
-            pad = (-T) % S
-            xp = F.pad(x, (0, 0, 0, pad)) if pad else x
-            y, ep_stats = ep_dispatch_combine(
-                p, cfg, xp, mesh=mesh, use_kernel=use_kernel,
-                return_stats=True)
-            y = (y[:T] if pad else y).reshape(orig_shape)
-            if return_stats:
-                ep_stats["padded_tokens"] = pad
-                return y, ep_stats
-            return y
+    if ep is None:
+        ep = expert_comm(current_mesh(), cfg)
+    if ep is not None:
+        # Expert-parallel all-to-all dispatch (repro_torch.ep).  A token
+        # count not divisible by S is zero-padded up to the next multiple
+        # and sliced back.
+        from ..ep.dispatch import ep_dispatch_combine
+        pad = (-T) % ep.size
+        xp = F.pad(x, (0, 0, 0, pad)) if pad else x
+        out = ep_dispatch_combine(p, cfg, xp, comm=ep, use_kernel=use_kernel,
+                                  return_stats=return_stats)
+        y, ep_stats = out if return_stats else (out, None)
+        y = (y[:T] if pad else y).reshape(orig_shape)
+        if return_stats:
+            ep_stats["padded_tokens"] = pad
+            return y, ep_stats
+        return y
     C = capacity(T, E, K, cfg.moe_capacity_factor)
     cap = ExpertCapacityProvider(E, C)
     gates, ids, probs = route(x, p["router"], K)

@@ -34,8 +34,20 @@ guard agrees on every rank.  Each call counts its collectives by kind
 the reference's ``collective_stats`` over HLO) in
 ``metrics["collectives"]``.  Without a mesh no collective runs and the
 policies differ only in ``afe_bucket``'s flatten/unflatten and its bf16
-rounding.  A mesh with an expert axis larger than 1 (EP under autograd)
-raises ``NotImplementedError``.
+rounding.
+
+On an ``"expert"`` axis of ``S > 1`` ranks (a config with
+``expert_parallel`` whose E the axis divides) the MoE layers take the EP
+round under autograd (:mod:`repro_torch.ep`): the expert ranks of one
+data rank run the same rows, each holds its ``E/S`` experts and their
+optimizer state (``step.local_state`` / ``step.whole_state``, as on a
+model axis), and the router's gradient, partial on each expert rank, is
+summed over them in one all-reduce at step end (AFE: one join per step in
+place of one per layer and microbatch).  The data-parallel sync stays
+over the fsdp axes, the gradient norm adds the expert ranks' sums, and
+the round's collectives and these two all-reduces are counted apart, in
+``metrics["ep_collectives"]``.  An expert axis together with a model axis
+larger than 1 raises ``NotImplementedError``.
 
 On a ``"model"`` axis of ``m > 1`` ranks the step is tensor-parallel
 (Megatron, :mod:`repro_torch.distributed.comm`): ``params`` and the
@@ -67,9 +79,11 @@ import torch
 import torch.distributed as dist
 
 from ..configs.base import ModelConfig, ShapeConfig
-from ..distributed.comm import Collectives, mesh_group, model_comm
+from ..distributed.comm import (
+    Collectives, expert_comm, mesh_group, model_comm,
+)
 from ..distributed.sharding import (
-    current_mesh, fsdp_axes, fsdp_layout, require_executable,
+    current_mesh, ep_summed, fsdp_axes, fsdp_layout, require_executable,
     tp_gather_params, tp_local_params, tp_owned,
 )
 from ..models import model as MDL
@@ -275,7 +289,9 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
     """Returns ``(step, dp_shard)``: ``step(params, opt_state, batch) ->
     (params, opt_state, metrics)``, params and state updated in place;
     ``metrics`` holds the reference's keys, ``loss`` (this rank's mean
-    microbatch loss) and ``collectives`` (the call's counts by kind).
+    microbatch loss), ``collectives`` (the call's counts by kind over the
+    data ranks), ``tp_collectives`` and ``ep_collectives`` (the model and
+    expert axes', apart).
 
     ``dp_shard`` (FSDP) is on for the afe policies, off for unopt/lc.
     Under a mesh ``step.layout`` is the :class:`FsdpLayout` of the afe
@@ -290,13 +306,20 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
     mesh = current_mesh()
     require_executable(mesh, "train")
     group = layout = None
-    tp = model_comm(mesh)
-    tp_rank, tp_size = (tp.rank, tp.size) if tp is not None else (0, 1)
+    tp, ep = model_comm(mesh), expert_comm(mesh, cfg)
+    # the axis whose ranks hold compute shards of the params: the model
+    # axis, or the expert axis (never both: require_executable)
+    split, axis = (tp, "model") if tp is not None else (ep, "expert")
+    s_rank, s_size = (split.rank, split.size) if split is not None \
+        else (0, 1)
     shapes = MDL.param_shapes(cfg)
-    if tp is not None:
-        shapes = tp_local_params(shapes, cfg, tp_rank, tp_size)
-    owned = tree_leaves(tp_owned(shapes, cfg, tp_rank, tp_size)) \
-        if tp is not None else None
+    owned = summed = None
+    if split is not None:
+        shapes = tp_local_params(shapes, cfg, s_rank, s_size, axis)
+        owned = tree_leaves(tp_owned(shapes, cfg, s_rank, s_size, axis))
+    if ep is not None:
+        summed = [i for i, f in enumerate(tree_leaves(
+            ep_summed(shapes, cfg, s_size))) if f]
     if mesh is not None:
         group = mesh_group(mesh, fsdp_axes(mesh))
         if dp_shard:
@@ -338,6 +361,8 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
         b = B // M
         comm = Collectives(group) if mesh is not None else None
         tpc = Collectives(tp.group) if tp is not None else None
+        epc = Collectives(ep.group) if ep is not None else None
+        splitc = tpc or epc
         lo, hi = 0, b
         if comm is not None:
             if b % comm.size:
@@ -357,7 +382,7 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
         acc, loss_sum = None, 0.0
         for i in range(M):
             mb = {k: v[i * b + lo:i * b + hi] for k, v in batch.items()}
-            loss = MDL.loss_fn(vparams, cfg, mb, tp=tpc, **fwd_kw)
+            loss = MDL.loss_fn(vparams, cfg, mb, tp=tpc, ep=epc, **fwd_kw)
             g = torch.autograd.grad(loss, views)
             loss_sum = loss_sum + loss.detach()
             del loss
@@ -372,6 +397,16 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
             del g
         for a in acc:
             a.div_(M)
+        if summed:
+            # the router's partial gradients summed over the expert ranks:
+            # one all-reduce per step, with the step-end sync
+            flat = epc.all_reduce(torch.cat([acc[i].reshape(-1)
+                                             for i in summed]))
+            off = 0
+            for i in summed:
+                n = acc[i].numel()
+                acc[i] = flat[off:off + n].reshape(acc[i].shape)
+                off += n
 
         # --- step-end synchronisation per policy ------------------------
         compress = scfg.grad_compress == "bf16"
@@ -398,7 +433,7 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
 
         if layout is None:
             params, opt_state, metrics = adamw_update(
-                params, grads, opt_state, ocfg, tp=tpc, owned=owned)
+                params, grads, opt_state, ocfg, split=splitc, owned=owned)
         else:
             # each rank updates its FSDP pieces, then the whole params are
             # all-gathered: per leaf (afe) or per bucket and dtype
@@ -407,8 +442,8 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
                       for p, d in zip(leaves, dims)]
             _, opt_state, metrics = adamw_update(
                 tree_unflatten(params, pieces), grads, opt_state, ocfg,
-                comm=comm, sharded=[d is not None for d in dims], tp=tpc,
-                owned=owned)
+                comm=comm, sharded=[d is not None for d in dims],
+                split=splitc, owned=owned)
             sharded = [i for i, d in enumerate(dims) if d is not None]
             groups = [[i] for i in sharded] if scfg.policy == "afe" else \
                 [g for bin_ in bins
@@ -428,22 +463,25 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
             else {}
         metrics["tp_collectives"] = dict(tpc.counts) if tpc is not None \
             else {}
+        metrics["ep_collectives"] = dict(epc.counts) if epc is not None \
+            else {}
         return params, opt_state, metrics
 
     def local_state(params, opt_state=None):
-        """This rank's params (its model rank's compute shards) and, when
-        given, optimizer state (those shards' FSDP pieces under the afe
-        policies) cut from whole trees (a fresh init, a checkpoint)."""
-        if tp is not None:
-            params = tp_local_params(params, cfg, tp_rank, tp_size)
+        """This rank's params (its model or expert rank's compute shards)
+        and, when given, optimizer state (those shards' FSDP pieces under
+        the afe policies) cut from whole trees (a fresh init, a
+        checkpoint)."""
+        if split is not None:
+            params = tp_local_params(params, cfg, s_rank, s_size, axis)
         if opt_state is None:
             return params
         opt_state = dict(opt_state)
         for k in ("m", "v", "master"):
             if k in opt_state:
-                if tp is not None:
+                if split is not None:
                     opt_state[k] = tp_local_params(opt_state[k], cfg,
-                                                   tp_rank, tp_size)
+                                                   s_rank, s_size, axis)
                 if layout is not None:
                     opt_state[k] = layout.local_tree(opt_state[k])
         return params, opt_state
@@ -451,10 +489,10 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
     def whole_state(params, opt_state):
         """The whole params and optimizer state on every rank from each
         rank's (collective over the mesh: the FSDP pieces all-gathered
-        over the data ranks, then the compute shards over the model
-        ranks); the inverse of :func:`local_state`."""
+        over the data ranks, then the compute shards over the model or
+        expert ranks); the inverse of :func:`local_state`."""
         comm = Collectives(group) if mesh is not None else None
-        tpc = Collectives(tp.group) if tp is not None else None
+        sc = Collectives(split.group) if split is not None else None
         local = tree_leaves(params)
         opt_state = dict(opt_state)
         for k in ("m", "v", "master"):
@@ -466,13 +504,16 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
                     x if d is None else _all_gather(
                         comm, [x], [d], [p.shape])[0].contiguous()
                     for x, d, p in zip(pieces, dims, local)])
-            if tpc is not None:
-                opt_state[k] = tp_gather_params(opt_state[k], cfg, tpc)
-        if tpc is not None:
-            params = tp_gather_params(params, cfg, tpc)
+            if sc is not None:
+                opt_state[k] = tp_gather_params(opt_state[k], cfg, sc, axis)
+        if sc is not None:
+            params = tp_gather_params(params, cfg, sc, axis)
         return params, opt_state
 
     step.layout = layout
+    # "model" or "expert" when this rank holds compute shards of the
+    # params (checkpoints are then saved whole), else None
+    step.split_axis = axis if split is not None else None
     step.local_state = local_state
     step.whole_state = whole_state
     # Static per-step schedule record: the trainer multiplies these by

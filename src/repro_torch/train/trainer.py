@@ -22,7 +22,8 @@ one device):
 * **restart on another device** — restore() places the tensors on the
   device of this run; under a mesh every rank saves and restores its own
   shard files (the afe policies' optimizer state as FSDP pieces); on a
-  ``"model"`` axis larger than 1 every rank saves the whole state
+  ``"model"`` axis larger than 1, or an ``"expert"`` axis that splits the
+  experts, every rank saves the whole state
   (gathered by ``step.whole_state``) and cuts its shards from the whole
   state it restores, so a checkpoint moves between meshes and world
   sizes whole;
@@ -47,7 +48,6 @@ from ..ckpt.checkpoint import CheckpointManager
 from ..configs.base import ModelConfig, ShapeConfig
 from ..data.pipeline import DataConfig, SyntheticPipeline
 from ..device import resolve_device
-from ..distributed.sharding import model_size
 from ..models import model as MDL
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs
@@ -115,7 +115,9 @@ def run_training(cfg: ModelConfig, shape: ShapeConfig,
     report = TrainReport()
 
     step_fn, _ = build_train_step(cfg, shape, scfg, ocfg)
-    whole = model_size() > 1   # tensor parallel: checkpoints hold it whole
+    # compute shards over the model or expert ranks: checkpoints hold
+    # the state whole
+    whole = step_fn.split_axis is not None
     splits = step_fn.layout.splits(MDL.param_shapes(cfg)) \
         if step_fn.layout is not None and not whole else None
     sched_counts = step_fn.sched_counts

@@ -829,6 +829,49 @@ def test_policies_world_size_one_bitwise_on_card(cuda, nccl_one, policy):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ep_round_backward_world_size_one_matches_moe_apply(cuda, nccl_one,
+                                                            dtype):
+    """granite-moe SMOKE at ample capacity: the EP round under autograd on
+    a one-rank expert axis has ``moe_apply``'s gradients (x, router, w1,
+    w3, w2; fp32 1e-4, bf16 the ``moe_gmm`` tolerance, of each one's
+    largest value), its backward launching ``moe_gmm_bwd`` once."""
+    from repro_torch.distributed.comm import Collectives
+    from repro_torch.ep.dispatch import ep_dispatch_combine
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import moe as M
+
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m", smoke=True),
+                              expert_parallel=True, dtype=dtype,
+                              moe_capacity_factor=2.0)
+    host = dataclasses.replace(cfg, expert_parallel=False)
+    dt = getattr(torch, dtype)
+    p = M.moe_init(torch.Generator(device="cuda").manual_seed(0), cfg, dt)
+    rng = np.random.default_rng(8)
+    x = _t(rng.normal(size=(64, cfg.d_model)), dt, cuda)
+    dout = _t(rng.normal(size=(64, cfg.d_model)), dt, cuda)
+    ep = Collectives(make_test_mesh(data=1, model=1, expert=1)
+                     .get_group("expert"))
+
+    def grads(comm):
+        ins = [t.clone().requires_grad_(True)
+               for t in (x, p["router"], p["w1"], p["w3"], p["w2"])]
+        pp = dict(zip(("router", "w1", "w3", "w2"), ins[1:]))
+        y = M.moe_apply(pp, host, ins[0]) if comm is None else \
+            ep_dispatch_combine(pp, cfg, ins[0], comm=comm)
+        return torch.autograd.grad(y, ins, dout)
+
+    want = grads(None)
+    n0 = MG.bwd_launches
+    got = grads(ep)
+    assert MG.bwd_launches == n0 + 1
+    assert ep.counts["all_to_all"] == 4 and ep.counts["all_gather"] == 2
+    tol = 1e-4 if dt == torch.float32 else 5 * 2e-2
+    for g, w in zip(got, want):
+        assert float((g.float() - w.float()).abs().max()) <= \
+            tol * float(w.float().abs().max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ep_round_world_size_one_matches_moe_apply(cuda, nccl_one, dtype):
     """granite-moe SMOKE at ample capacity: ``ep_round`` on a one-rank
     expert axis equals the single-host ``moe_apply`` (fp32 1e-5, bf16 the

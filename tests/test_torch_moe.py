@@ -185,9 +185,9 @@ def test_capacity_provider_residual_and_overflow_match_reference():
     assert t.total() == j.total() == 40
 
 
-def test_expert_parallel_is_not_ported_yet():
-    """(Named before the EP round was ported; ``tests/test_torch_ep.py``
-    holds the round.)  Without a mesh whose expert axis is larger than 1,
+def test_expert_parallel_without_expert_axis_is_single_host():
+    """(``tests/test_torch_ep.py`` and ``tests/test_torch_ep_train.py``
+    hold the EP round.)  Without a mesh whose expert axis is larger than 1,
     a config that sets ``expert_parallel`` takes the single-host dispatch,
     as the reference's does: equal to the same config without it."""
     _, tcfg = _cfgs("granite-moe-1b-a400m", expert_parallel=True)
