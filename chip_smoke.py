@@ -174,11 +174,28 @@ one cross layer, since its ~180 GB of bf16 weights exceed the card):
     one-process steps (and, at ample capacity, gradient norms), launches
     and both axes' collectives exact, per-rank step ms and peak memory.
 
+21. ``tp_serve``: tensor-parallel serving.  ``moe_gmm`` at one model
+    rank of 2's serving shapes (E 16, C 8 and C 80, bf16) against its
+    plain version and the ``torch.bmm`` chain; (a) on a one-rank NCCL
+    group, granite at full width (bf16) serves phase 5's closed batch on
+    a ``(data 1, model 1)`` mesh: the tokens bitwise equal to phase 5's
+    mesh-free run, each axis's collectives exact; (b) two processes on
+    the one card over gloo at ``(data 1, model 2)``: fp32 teacher-forced
+    decode of full-width granite and hymba-1.5b, 16 steps, each step's
+    logits gathered over the vocab shards within 1e-4 of the one-process
+    port's, and fp32 chunked prefill (granite, 2 layers) equal to whole
+    prefill on each rank (max |Δ| 0.0);
+    (c) the two ranks serve the closed batch in bf16 (E 16 per rank):
+    16/16 finished, both ranks' tokens identical, ``moe_gmm`` exactly 24
+    launches per model launch and the collectives exact; step p50 / p99,
+    tokens/s, peak memory per rank against phase 5's one process, and the
+    share of tokens equal to phase 5's.
+
 Each main-path run (each forward of phases 4, 7, 9, 10, 15 and 16; the
 serve CLI and the batcher run of phase 5 for ``moe_gmm``; the four steps
 of phases 13, 14 and 15 for the backward kernels, each EP round, each
 rank's every step in phases 19 and 20, and phase 20's EP round under
-autograd) zeroes the launch counters
+autograd, each batcher run of phase 21) zeroes the launch counters
 just before it and reads them just after; the ``kernels`` line takes ``moe_gmm``'s
 count from the serve CLI, ``ssm_scan``'s from the fp32 falcon-mamba-7b
 forward, ``flash_attention``'s from the bf16 phi3-mini forward,
@@ -186,8 +203,10 @@ forward, ``flash_attention``'s from the bf16 phi3-mini forward,
 second ``flash_attention_bwd`` entry, at whisper's cross-attention shape,
 from phase 15) and ``ssm_scan_bwd``'s from phase 14; four more
 entries give ``moe_gmm``'s and ``moe_gmm_bwd``'s launches on phase 20's
-EP path (per round in (a), per step of expert rank 0 in (b)).  Each
-phase's wall time is printed after it.  Launches made to compare a kernel with its plain
+EP path (per round in (a), per step of expert rank 0 in (b)), and two
+more ``moe_gmm``'s at one model rank of 2's serving shapes, with model
+rank 0's launches in phase 21 (c).  Each phase's wall time is printed
+after it.  Launches made to compare a kernel with its plain
 version are not counted.  Every phase prints JSON lines and raises on
 failure.  The second-to-last line is the ``kernels`` JSON and the last
 line ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without
@@ -766,44 +785,112 @@ def phase_chunked_prefill(torch) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def closed_batch(cfg) -> list:
+    """The serving phases' closed batch: 16 requests of 128–384-token
+    prompts drawn from ``SEED``, 32 new tokens each, all at step 0."""
+    import numpy as np
+
+    from repro_torch.serve import batcher as SB
+
+    rng = np.random.default_rng(SEED)
+    return [SB.Request(rid=i, prompt=rng.integers(
+                0, cfg.vocab, size=int(rng.integers(128, 385))).tolist(),
+                max_new=32, arrive_step=0) for i in range(16)]
+
+
+def drive_batcher(torch, b, reqs) -> list:
+    """Submit ``reqs`` to the batcher ``b`` and step it until every request
+    is done (at most 5000 steps); the host-clock ms of each step, taken
+    after a synchronise on the card."""
+    step_ms = []
+    for r in reqs:
+        b.submit(r)
+    now = 0
+    while (b.queued() or any(r is not None for r in b.slot_req)) \
+            and now < 5000:
+        ts = time.perf_counter()
+        b.step(now)
+        if b.device.type == "cuda":
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+        now += 1
+    return step_ms
+
+
+def counted_serve(torch, cfg, run) -> dict:
+    """Run ``run()`` with the forward kernels' counters at 0, counting the
+    model launches it makes (``prefill_step`` rounds, ``decode_step``
+    steps), ``moe_gmm``'s launches inside each kind (its counter read
+    around every call, ``moe_gmm_by_call``) and the ``(E, C)`` of each
+    launch (``moe_gmm_shapes``: kind → {"E16 C8": launches}).
+    ``moe_gmm`` must have launched once per layer of ``cfg`` per model
+    launch of either kind, and nowhere else."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.moe_dispatch import moe_gmm as MG
+    from repro_torch.models import model as TM
+
+    calls = {"prefill": 0, "decode": 0}
+    by_call = {"prefill": 0, "decode": 0}
+    shapes = {"prefill": {}, "decode": {}, "outside": {}}
+    real = {"prefill": TM.prefill_step, "decode": TM.decode_step}
+    real_plan = MG.run_plan
+    inside = []
+
+    def counted(kind):
+        def step(*a, **k):
+            calls[kind] += 1
+            inside.append(kind)
+            n0 = MG.launches
+            try:
+                return real[kind](*a, **k)
+            finally:
+                by_call[kind] += MG.launches - n0
+                inside.pop()
+        return step
+
+    def run_plan(buf, *a, **k):
+        at = shapes[inside[-1] if inside else "outside"]
+        key = f"E{buf.shape[0]} C{buf.shape[1]}"
+        at[key] = at.get(key, 0) + 1
+        return real_plan(buf, *a, **k)
+
+    TM.prefill_step, TM.decode_step = counted("prefill"), counted("decode")
+    MG.run_plan = run_plan
+    try:
+        MG.launches = FA.launches = 0
+        run()
+        torch.cuda.synchronize()
+        got = {"moe_gmm": MG.launches, "flash_attention": FA.launches}
+    finally:
+        TM.prefill_step, TM.decode_step = real["prefill"], real["decode"]
+        MG.run_plan = real_plan
+    bad = [k for k in calls if by_call[k] != cfg.n_layers * calls[k]
+           or sum(shapes[k].values()) != by_call[k]]
+    if got["moe_gmm"] != sum(by_call.values()) or shapes["outside"] \
+            or bad or not sum(calls.values()):
+        raise AssertionError(f"moe_gmm launched {got['moe_gmm']} times, "
+                             f"{by_call} in {calls} model launches of "
+                             f"{cfg.n_layers} layers, shapes {shapes}")
+    del shapes["outside"]
+    return {"launches": got, "prefill_rounds": calls["prefill"],
+            "decode_steps": calls["decode"], "moe_gmm_by_call": by_call,
+            "moe_gmm_shapes": shapes}
+
+
+def at_shape(shapes: dict, row: dict) -> int:
+    """``moe_gmm``'s launches at the ``(E, C)`` of ``row`` (a
+    :func:`phase_moe_gmm` row) in :func:`counted_serve`'s
+    ``moe_gmm_shapes``, over both kinds of model launch."""
+    return sum(k.get(f"E{row['E']} C{row['C']}", 0)
+               for k in shapes.values())
+
+
 def phase_serve(torch, cfg, card: str) -> dict:
     import numpy as np
 
-    from repro_torch.kernels.moe_dispatch import moe_gmm as MG
-    from repro_torch.kernels.flash_attention import flash_attention as FA
     from repro_torch.launch import serve as launch_serve
     from repro_torch.models import model as TM
     from repro_torch.serve import batcher as SB
-
-    # Count the model launches the batcher makes, so the kernel launches
-    # can be held to exactly 24 (one per MoE layer) per model launch.
-    calls = {"prefill": 0, "decode": 0}
-    real_prefill, real_decode = TM.prefill_step, TM.decode_step
-
-    def prefill_step(*a, **k):
-        calls["prefill"] += 1
-        return real_prefill(*a, **k)
-
-    def decode_step(*a, **k):
-        calls["decode"] += 1
-        return real_decode(*a, **k)
-
-    def counted_run(run) -> dict:
-        calls.update(prefill=0, decode=0)
-        TM.prefill_step, TM.decode_step = prefill_step, decode_step
-        try:
-            MG.launches = FA.launches = 0
-            run()
-            torch.cuda.synchronize()
-            got = {"moe_gmm": MG.launches, "flash_attention": FA.launches}
-        finally:
-            TM.prefill_step, TM.decode_step = real_prefill, real_decode
-        expect = cfg.n_layers * (calls["prefill"] + calls["decode"])
-        if got["moe_gmm"] != expect or expect == 0:
-            raise AssertionError(f"moe_gmm launched {got['moe_gmm']} times, "
-                                 f"expected {expect}")
-        return {"launches": got, "prefill_rounds": calls["prefill"],
-                "decode_steps": calls["decode"]}
 
     # 1. the CLI entry point, as a user runs it
     printed = io.StringIO()
@@ -815,7 +902,7 @@ def phase_serve(torch, cfg, card: str) -> dict:
                 "--arch", cfg.name, "--requests", "16", "--slots", "8",
                 "--cache-len", "512"]))
     t0 = time.perf_counter()
-    cli_counts = counted_run(run_cli)
+    cli_counts = counted_serve(torch, cfg, run_cli)
     cli_s = time.perf_counter() - t0
     if json.loads(printed.getvalue()) != json.loads(json.dumps(cli)):
         raise AssertionError("serve CLI printed something else than it ran")
@@ -830,28 +917,15 @@ def phase_serve(torch, cfg, card: str) -> dict:
     # 2. a ContinuousBatcher run: 16 requests, 128–384-token prompts
     params = TM.init_params(cfg, torch.Generator(device="cuda")
                             .manual_seed(SEED), device="cuda")
-    rng = np.random.default_rng(SEED)
-    reqs = [SB.Request(rid=i, prompt=rng.integers(
-                0, cfg.vocab, size=int(rng.integers(128, 385))).tolist(),
-                max_new=32, arrive_step=0) for i in range(16)]
+    reqs = closed_batch(cfg)
+    torch.cuda.reset_peak_memory_stats()
     b = SB.ContinuousBatcher(cfg, params, n_slots=8, cache_len=512,
                              policy="dlbc", prefill_chunk=32, device="cuda")
     step_ms = []
-
-    def run_batcher():
-        for r in reqs:
-            b.submit(r)
-        now = 0
-        while (b.queued() or any(r is not None for r in b.slot_req)) \
-                and now < 5000:
-            ts = time.perf_counter()
-            b.step(now)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - ts) * 1e3)
-            now += 1
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    counts = counted_run(run_batcher)
+    counts = counted_serve(torch, cfg, lambda: step_ms.extend(
+        drive_batcher(torch, b, reqs)))
     wall = time.perf_counter() - t0
     done = [r for r in reqs if r.done_step is not None]
     gen_tokens = sum(len(r.tokens) - len(r.prompt) for r in reqs)
@@ -862,11 +936,15 @@ def phase_serve(torch, cfg, card: str) -> dict:
            "prompt_tokens": sum(len(r.prompt) for r in reqs),
            "tokens_per_s": gen_tokens / wall, "wall_s": wall,
            "p50_step_ms": float(np.percentile(step_ms, 50)),
-           "p99_step_ms": float(np.percentile(step_ms, 99)), **counts}
+           "p99_step_ms": float(np.percentile(step_ms, 99)),
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 1e9, **counts}
     emit(row)
     if len(done) != len(reqs) or gen_tokens != 32 * len(reqs) or bad:
         raise AssertionError("serving did not finish every request cleanly")
     row["cli_launches"] = cli_counts["launches"]
+    row["cli_moe_gmm_shapes"] = cli_counts["moe_gmm_shapes"]
+    row["tokens"] = [r.tokens[len(r.prompt):] for r in reqs]
     return row
 
 
@@ -1639,25 +1717,6 @@ def phase_ep_round(torch, cfg, card: str, T: int = 1024) -> list:
 # ---------------------------------------------------------------------------
 
 
-def tp_local_config(cfg, m: int):
-    """The config whose shapes one of ``m`` model ranks computes with: the
-    query and KV heads over ``m`` where they split (else whole), E over
-    ``m`` where it divides (else d_ff), the MLP's d_ff, d_inner."""
-    from repro_torch.distributed.sharding import attn_split
-
-    rep = {}
-    if cfg.n_heads and attn_split(cfg, m):
-        rep.update(n_heads=cfg.n_heads // m, d_head=cfg.head_dim,
-                   n_kv_heads=max(1, cfg.n_kv_heads // m))
-    if cfg.n_experts and cfg.n_experts % m == 0:
-        rep["n_experts"] = cfg.n_experts // m
-    elif cfg.d_ff:
-        rep["d_ff"] = cfg.d_ff // m
-    if cfg.d_inner:
-        rep["d_inner"] = cfg.d_inner // m
-    return dataclasses.replace(cfg, **rep)
-
-
 def tp_step_setup(torch, cfg, mesh, *, seq_len: int, global_batch: int,
                   microbatches: int, lr: float, ssm_chunk: int = 256,
                   dev: str = "cuda", policy: str = "lc"):
@@ -1815,8 +1874,9 @@ def ep_rank_run(torch, rank: int, plan: dict) -> dict:
 def tp_rank(rank: int, store: str, plan: dict, q) -> None:
     """A spawned rank: a gloo process group (NCCL refuses two ranks on one
     device; gloo stages CUDA tensors through host memory), then
-    :func:`tp_rank_run` (or :func:`ep_rank_run` for a plan of kind
-    ``"ep"``); the result or the traceback goes on ``q``."""
+    :func:`tp_rank_run` (:func:`ep_rank_run` for a plan of kind ``"ep"``,
+    :func:`tp_serve_rank_run` for one of kind ``"serve"``); the result or
+    the traceback goes on ``q``."""
     import traceback
 
     sys.path.insert(0, str(SRC))
@@ -1830,7 +1890,8 @@ def tp_rank(rank: int, store: str, plan: dict, q) -> None:
         torch.backends.cudnn.allow_tf32 = False
         dist.init_process_group("gloo", init_method=f"file://{store}",
                                 rank=rank, world_size=2)
-        run = ep_rank_run if plan.get("kind") == "ep" else tp_rank_run
+        run = {"ep": ep_rank_run, "serve": tp_serve_rank_run}.get(
+            plan.get("kind"), tp_rank_run)
         q.put((rank, run(torch, rank, plan)))
     except BaseException:
         q.put((rank, {"error": traceback.format_exc()}))
@@ -1871,7 +1932,8 @@ def tp_spawn(plan: dict) -> dict:
     errors = [f"rank {r}:\n{res['error']}" for r, res in got.items()
               if "error" in res]
     if errors:
-        raise AssertionError("tp_train: " + "".join(errors))
+        raise AssertionError(f"{plan.get('kind', 'tp')} ranks: " +
+                             "".join(errors))
     return got
 
 
@@ -1896,6 +1958,8 @@ def phase_tp_train(torch, cfg, hymba, card: str) -> list:
       gloo's host staging of every all-reduce (nothing here measures
       NVLink)."""
     import gc
+
+    from repro_torch.distributed.sharding import tp_local_config
 
     torch.cuda.reset_peak_memory_stats()
     one = tp_steps(torch, *tp_step_setup(
@@ -2159,6 +2223,425 @@ def phase_ep_train(torch, cfg, card: str, T: int = 4096,
 
 
 # ---------------------------------------------------------------------------
+# Phase 21: tensor-parallel serving
+# ---------------------------------------------------------------------------
+
+
+def teacher_forced_decode(torch, cfg, steps: int, *, rank: int = 0,
+                          mesh=None, tp=None):
+    """``cfg``'s weights and 2 rows of ``steps`` tokens from ``SEED``, the
+    tokens fed one by one through ``decode_step``; each step's logits on
+    the host, ``(steps, 2, V)``.  On ``mesh`` (a ``(data 1, model 2)``
+    one) the weights and the cache are model rank ``rank``'s and ``V``
+    its vocab shard."""
+    from repro_torch.distributed.sharding import tp_local_params
+    from repro_torch.models import model as TM
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = TM.init_params(cfg, gen, device=dev)
+    toks = torch.randint(0, cfg.vocab, (2, steps), generator=gen,
+                         device=dev)
+    if mesh is not None:
+        params = tp_local_params(params, cfg, rank, 2)
+    cache = TM.init_cache(cfg, 2, steps, device=dev, mesh=mesh)
+    out = []
+    with torch.no_grad():
+        for t in range(steps):
+            lg, cache = TM.decode_step(params, cfg, cache, {
+                "tokens": toks[:, t:t + 1],
+                "cache_index": torch.tensor(t, device=dev)}, tp=tp)
+            out.append(lg.float().cpu())
+    return torch.stack(out)
+
+
+def prefill_config(cfg):
+    """:func:`chunked_prefill`'s config: ``cfg`` in fp32 at 2 layers,
+    capacity factor E / top_k (no token dropped whatever shares a
+    launch)."""
+    return dataclasses.replace(cfg, dtype="float32", n_layers=2,
+                               moe_capacity_factor=cfg.n_experts /
+                               cfg.top_k)
+
+
+def chunked_prefill(torch, cfg, *, rank: int = 0, mesh=None,
+                    tp=None) -> dict:
+    """``cfg`` from ``SEED`` under deterministic algorithms: a 48-token
+    prompt (row 0; row 1 inert) prefilled through a ``(2, 64)`` buffer
+    whole, in 32 + 16 and in 3 × 16, then one decode step.  ``delta``:
+    the largest |Δ| of any chunking's cache or logits against the whole
+    prefill's; ``cache`` / ``logits``: the whole prefill's, as numpy (on
+    ``mesh`` this rank's cache and vocab shard)."""
+    from repro_torch.device import parity_mode
+    from repro_torch.distributed.sharding import tp_local_params
+    from repro_torch.models import model as TM
+    from repro_torch.tree import tree_leaves, tree_map
+
+    dev = "cuda"
+    parity_mode(deterministic=True)
+    try:
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        params = TM.init_params(cfg, gen, device=dev)
+        prompt = torch.randint(0, cfg.vocab, (49,), generator=gen,
+                               device=dev)
+        if mesh is not None:
+            params = tp_local_params(params, cfg, rank, 2)
+        runs = []
+        with torch.no_grad():
+            for sizes in ((48,), (32, 16), (16, 16, 16)):
+                cache = TM.init_cache(cfg, 2, 64, device=dev, mesh=mesh)
+                pos = 0
+                for n in sizes:
+                    buf = torch.zeros((2, 64), dtype=torch.long,
+                                      device=dev)
+                    buf[0, :n] = prompt[pos:pos + n]
+                    TM.prefill_step(params, cfg, cache, {
+                        "tokens": buf,
+                        "cache_index": torch.tensor([pos, 0], device=dev),
+                        "count": torch.tensor([n, 0], device=dev)}, tp=tp)
+                    pos += n
+                lg, _ = TM.decode_step(params, cfg, cache, {
+                    "tokens": prompt[48:].expand(2, 1),
+                    "cache_index": torch.tensor([48, 0], device=dev)},
+                    tp=tp)
+                runs.append((cache, lg))
+    finally:
+        parity_mode(deterministic=False)
+    flat = [tree_leaves(c) + [lg] for c, lg in runs]
+    # numpy: a tensor on the queue would travel as a file descriptor that
+    # dies with the process that sent it
+    return {"delta": max(float((a.float() - b.float()).abs().max())
+                         for run in flat[1:] for a, b in zip(run, flat[0])),
+            "cache": tree_map(lambda t: t.float().cpu().numpy(), runs[0][0]),
+            "logits": runs[0][1].float().cpu().numpy()}
+
+
+def tp_serve_rank_run(torch, rank: int, plan: dict) -> dict:
+    """One model rank of :func:`phase_tp_serve` (b) and (c) on a ``(data
+    1, model 2)`` mesh: fp32 teacher-forced decodes (this rank's vocab
+    shard of each step's logits), chunked against whole prefill, then the
+    bf16 closed batch through the ``ContinuousBatcher`` with this rank's
+    shards: tokens, per-step ms, kernel and model launches, both axes'
+    collectives, peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.comm import Collectives
+    from repro_torch.distributed.sharding import (
+        tp_local_config, tp_local_params)
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import model as TM
+    from repro_torch.serve import batcher as SB
+
+    dev = "cuda"
+    mesh = make_test_mesh(data=1, model=2, device_type="cpu")
+    tpc = Collectives(mesh.get_group("model"))
+    out = {"decode": [], "seconds": {}}
+    t0 = time.perf_counter()
+    for arch, steps in plan["decode"]:
+        c = dataclasses.replace(get_config(arch), dtype="float32")
+        out["decode"].append(teacher_forced_decode(
+            torch, c, steps, rank=rank, mesh=mesh, tp=tpc).numpy())
+    out["seconds"]["decode"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["prefill"] = chunked_prefill(torch, prefill_config(get_config(
+        plan["prefill"])), rank=rank, mesh=mesh, tp=tpc)
+    out["seconds"]["prefill"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c = get_config(plan["serve"])
+    params = tp_local_params(TM.init_params(c, torch.Generator(
+        device=dev).manual_seed(SEED), device=dev), c, rank, 2)
+    reqs = closed_batch(c)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    b = SB.ContinuousBatcher(c, params, n_slots=8, cache_len=512,
+                             policy="dlbc", prefill_chunk=32, device=dev,
+                             mesh=mesh)
+    out["seconds"]["serve_setup"] = time.perf_counter() - t0
+    step_ms = []
+    t0 = time.perf_counter()
+    counts = counted_serve(torch, tp_local_config(c, 2), lambda:
+                           step_ms.extend(drive_batcher(torch, b, reqs)))
+    out["serve"] = {
+        "tokens": [r.tokens[len(r.prompt):] for r in reqs],
+        "finished": sum(r.done_step is not None for r in reqs),
+        "wall_s": time.perf_counter() - t0, "step_ms": step_ms,
+        "tp_collectives": b.tp.counts, "dp_collectives": b.dp.counts,
+        "local_experts": int(params["layers"]["moe"]["w1"].shape[-3]),
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        **counts}
+    return out
+
+
+def tp_serve_one_rank(torch, cfg, card: str, one: dict) -> dict:
+    """(a) of :func:`phase_tp_serve`: the closed batch on a one-rank NCCL
+    group's ``(data 1, model 1)`` mesh, from the weights of
+    :func:`phase_serve`'s batcher run (``one``, its row): the tokens must
+    be bitwise that run's (each collective of one rank is a copy), the
+    collectives exact."""
+    import shutil
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import model as TM
+    from repro_torch.serve import batcher as SB
+
+    store = nccl_world_of_one(torch)
+    try:
+        mesh = make_test_mesh(data=1, model=1)
+        params = TM.init_params(cfg, torch.Generator(device="cuda")
+                                .manual_seed(SEED), device="cuda")
+        reqs = closed_batch(cfg)
+        b = SB.ContinuousBatcher(cfg, params, n_slots=8, cache_len=512,
+                                 policy="dlbc", prefill_chunk=32,
+                                 device="cuda", mesh=mesh)
+        top = record_top_logits(torch, b)
+        step_ms = []
+        t0 = time.perf_counter()
+        counts = counted_serve(torch, cfg, lambda: step_ms.extend(
+            drive_batcher(torch, b, reqs)))
+        wall = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    tokens = [r.tokens[len(r.prompt):] for r in reqs]
+    top = {k: (v.tolist(), i.tolist()) for k, (v, i) in
+           ((k, (v.float().cpu(), i.cpu())) for k, (v, i) in top.items())}
+    per = 1 + 2 * cfg.n_layers
+    n_pre, n_dec = counts["prefill_rounds"], counts["decode_steps"]
+    zero = dict.fromkeys(("all_reduce", "reduce_scatter", "all_gather",
+                          "all_to_all", "send_recv"), 0)
+    expect = {"tp": dict(zero, all_reduce=per * (n_pre + n_dec),
+                         all_gather=n_dec),
+              "dp": dict(zero, all_gather=n_dec)}
+    row = {"phase": "tp_serve", "check": "one_rank", "arch": cfg.name,
+           "dtype": cfg.dtype, "card": card, "backend": "nccl",
+           "mesh": "data 1, model 1",
+           "tokens_bitwise_equal_serve": tokens == one["tokens"],
+           "finished": sum(r.done_step is not None for r in reqs),
+           "steps": len(step_ms),
+           "tokens_per_s": sum(map(len, tokens)) / wall,
+           "p50_step_ms": float(np.percentile(step_ms, 50)),
+           "p99_step_ms": float(np.percentile(step_ms, 99)),
+           "serve_p50_step_ms": one["p50_step_ms"],
+           "tp_collectives": b.tp.counts, "dp_collectives": b.dp.counts,
+           "expected_collectives": expect, **counts}
+    emit(row)
+    if tokens != one["tokens"] or row["finished"] != 16:
+        raise AssertionError("tp_serve (a): the one-rank mesh's tokens "
+                             "differ from the mesh-free run's")
+    if b.tp.counts != expect["tp"] or b.dp.counts != expect["dp"]:
+        raise AssertionError(f"tp_serve (a): collectives {row}")
+    return dict(row, tokens=tokens, top=top)
+
+
+def record_top_logits(torch, b, k: int = 5) -> dict:
+    """Wrap the batcher ``b``'s ``_next_tokens``: for every request token
+    it picks, ``(rid, j)`` (the request's ``j``-th generated token) →
+    the ``k`` largest logits over the real vocab and their ids, kept on
+    the card (no copy to the host inside the run)."""
+    top, real = {}, b._next_tokens
+
+    def next_tokens(logits):
+        v, ids = torch.topk(logits[:, :b.cfg.vocab].float(), k, dim=-1)
+        for i, r in enumerate(b.slot_req):
+            if r is not None and i not in b._prefilling:
+                top[(r.rid, len(r.tokens) - len(r.prompt))] = (v[i], ids[i])
+        return real(logits)
+
+    b._next_tokens = next_tokens
+    return top
+
+
+def first_difference_margins(tokens: list, one: dict) -> dict:
+    """Where each request's ``tokens`` first differ from the one-rank
+    run's (``one``: :func:`tp_serve_one_rank`'s row, its ``top``
+    logits): that run's top-1 minus top-2 logit there and its top-1 minus
+    the logit of the token taken instead (None when that token is not in
+    its top 5); beside them the top-1 minus top-2 margin at every
+    generated token of the one-rank run (median, 10th percentile)."""
+    import numpy as np
+
+    firsts = []
+    for rid, (x, y) in enumerate(zip(tokens, one["tokens"])):
+        j = next((j for j, (a, c) in enumerate(zip(x, y)) if a != c), None)
+        if j is None:
+            continue
+        v, ids = one["top"][(rid, j)]
+        firsts.append({"request": rid, "token": j,
+                       "top1_minus_top2": v[0] - v[1],
+                       "top1_minus_taken": v[0] - v[ids.index(x[j])]
+                       if x[j] in ids else None})
+    every = [v[0] - v[1] for v, _ in one["top"].values()]
+    return {"first_differences": firsts,
+            "margin_median_all_tokens": float(np.median(every)),
+            "margin_p10_all_tokens": float(np.percentile(every, 10))}
+
+
+def phase_tp_serve(torch, cfg, hymba, card: str, one: dict) -> dict:
+    """Tensor-parallel serving (``decode_step``, span prefill and the
+    ``ContinuousBatcher`` on a mesh); ``one``: :func:`phase_serve`'s row,
+    the mesh-free batcher's run.
+
+    (a) :func:`tp_serve_one_rank`: full-width bf16 ``cfg`` (granite) on
+    one NCCL rank, ``phase_serve``'s closed batch; tokens bitwise equal to
+    the mesh-free run's.
+    (b) Two processes on the one card over gloo at ``(data 1, model 2)``
+    (:func:`tp_spawn`, a plan of kind ``"serve"``): fp32 (TF32 off)
+    teacher-forced decode of full-width ``cfg`` and ``hymba`` (its 25
+    heads whole on both ranks, ``d_inner`` split), 16 steps, each step's
+    logits gathered over the vocab shards within 1e-4 (max |Δ| / max
+    |ref|) of the one-process port's (run here first, same seeds); fp32
+    chunked prefill of full-width ``cfg`` at 2 layers (capacity factor E /
+    top_k: no token dropped whatever shares a launch) equal to whole
+    prefill on each rank, max |Δ| 0.0, and the whole prefill's cache and
+    next logits, gathered over the ranks, within 1e-4 (max |Δ| / max
+    |ref|, per leaf) of one process's (where chunked == whole too).
+    (c) The same two ranks serve the closed batch in bf16 with their
+    shards (E 16 per rank): 16/16 finished, both ranks' tokens identical,
+    ``moe_gmm`` exactly once per layer per model launch, at one ``(E, C)``
+    per kind of launch (those of the ``kernels`` rows), and each axis's
+    collectives exact per prefill round and decode step; step p50 / p99,
+    tokens/s, peak memory per rank against ``one``'s, and the share of
+    generated tokens equal to ``one``'s (not gated: bf16 partial sums
+    added in another order can flip a near tie), with (a)'s logit
+    margins where each request first differs
+    (:func:`first_difference_margins`).  Step times include gloo's host
+    staging of every all-reduce."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.distributed.sharding import (
+        tp_assemble_cache, tp_local_config)
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t0 = time.perf_counter()
+    one_rank = tp_serve_one_rank(torch, cfg, card, one)
+    seconds = {"one_rank": time.perf_counter() - t0}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    f32 = [dataclasses.replace(c, dtype="float32") for c in (cfg, hymba)]
+    refs = [teacher_forced_decode(torch, c, 16) for c in f32]
+    pre_cfg = prefill_config(cfg)
+    pre_ref = chunked_prefill(torch, pre_cfg)
+    seconds["one_process_decode_prefill"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    got = tp_spawn({"kind": "serve", "dev": "cuda",
+                    "decode": [(c.name, 16) for c in f32],
+                    "prefill": cfg.name, "serve": cfg.name})
+    seconds["ranks"] = time.perf_counter() - t0
+    emit({"phase": "tp_serve", "check": "seconds", **seconds,
+          "rank_seconds": [got[r]["seconds"] for r in range(2)]})
+    rows, bad = [], []
+    for i, c in enumerate(f32):
+        whole = torch.cat([torch.from_numpy(got[r]["decode"][i])
+                           for r in range(2)], -1)
+        ref = refs[i]
+        err = [float((whole[t] - ref[t]).abs().max()) /
+               float(ref[t].abs().max()) for t in range(ref.shape[0])]
+        row = {"phase": "tp_serve", "check": "fp32_decode", "arch": c.name,
+               "card": card, "mesh": "data 1, model 2", "backend": "gloo",
+               "steps": ref.shape[0], "shape": list(whole.shape),
+               "max_err_over_max_per_step": err,
+               "argmax_equal": bool(torch.equal(whole.argmax(-1),
+                                                ref.argmax(-1)))}
+        emit(row)
+        rows.append(row)
+        if whole.shape != ref.shape or max(err) > 1e-4:
+            bad.append(f"fp32 decode {c.name}: {max(err)}")
+
+    def paths(t, at=""):
+        """The leaves' paths, in :func:`tree_leaves`' order."""
+        return [p for k in sorted(t) for p in paths(t[k], f"{at}/{k}")] \
+            if isinstance(t, dict) else [at]
+
+    delta = [got[r]["prefill"]["delta"] for r in range(2)]
+    pieces = [got[r]["prefill"] for r in range(2)]
+    whole = tree_leaves(tp_assemble_cache(
+        [[tree_map(torch.from_numpy, p["cache"]) for p in pieces]],
+        pre_cfg)) + [torch.cat([torch.from_numpy(p["logits"])
+                                for p in pieces], -1)]
+    ref = tree_leaves(tree_map(torch.from_numpy, pre_ref["cache"])) + [
+        torch.from_numpy(pre_ref["logits"])]
+    err = [float((a - c).abs().max()) / float(c.abs().max())
+           if a.shape == c.shape else float("inf")
+           for a, c in zip(whole, ref)]
+    row = {"phase": "tp_serve", "check": "chunked_prefill", "arch": cfg.name,
+           "card": card, "dtype": "float32", "mesh": "data 1, model 2",
+           "layers": pre_cfg.n_layers,
+           "chunkings": [[48], [32, 16], [16, 16, 16]],
+           "chunked_vs_whole_max_abs_diff": delta,
+           "one_process_chunked_vs_whole_max_abs_diff": pre_ref["delta"],
+           "whole_vs_one_process_max_err_over_max_per_leaf": err,
+           "leaves": [f"cache{k}" for k in paths(pre_ref["cache"])] +
+                     ["next logits"]}
+    emit(row)
+    rows.append(row)
+    if any(d != 0.0 for d in delta + [pre_ref["delta"]]):
+        bad.append(f"chunked prefill != whole: ranks {delta}, one process "
+                   f"{pre_ref['delta']}")
+    if len(whole) != len(ref) or max(err) > 1e-4:
+        bad.append(f"prefill on the ranks vs one process: {err}")
+    local = tp_local_config(cfg, 2)
+    per = 1 + 2 * cfg.n_layers
+    zero = dict.fromkeys(("all_reduce", "reduce_scatter", "all_gather",
+                          "all_to_all", "send_recv"), 0)
+    want = one["tokens"]
+    for r in range(2):
+        srv = got[r]["serve"]
+        n_pre, n_dec = srv["prefill_rounds"], srv["decode_steps"]
+        gen = sum(len(t) for t in srv["tokens"])
+        agree = sum(a == b for x, y in zip(srv["tokens"], want)
+                    for a, b in zip(x, y))
+        shapes = srv["moe_gmm_shapes"]
+        row = {"phase": "tp_serve", "check": "serve_bf16", "rank": r,
+               "card": card, "arch": cfg.name, "dtype": cfg.dtype,
+               "mesh": "data 1, model 2", "backend": "gloo",
+               "local_experts": srv["local_experts"],
+               "finished": srv["finished"], "steps": len(srv["step_ms"]),
+               "generated_tokens": gen, "tokens_per_s": gen / srv["wall_s"],
+               "p50_step_ms": float(np.percentile(srv["step_ms"], 50)),
+               "p99_step_ms": float(np.percentile(srv["step_ms"], 99)),
+               "max_memory_allocated_gb": srv["max_memory_allocated_gb"],
+               "one_process_max_memory_allocated_gb":
+                   one["max_memory_allocated_gb"],
+               "one_process_p50_step_ms": one["p50_step_ms"],
+               "one_process_tokens_per_s": one["tokens_per_s"],
+               "tokens_equal_one_process_share": agree / max(gen, 1),
+               "tokens_equal_other_rank":
+                   srv["tokens"] == got[1 - r]["serve"]["tokens"],
+               "near_ties": first_difference_margins(srv["tokens"],
+                                                     one_rank),
+               "launches": srv["launches"],
+               "moe_gmm_by_call": srv["moe_gmm_by_call"],
+               "moe_gmm_shapes": shapes,
+               "prefill_rounds": n_pre, "decode_steps": n_dec,
+               "tp_collectives": srv["tp_collectives"],
+               "dp_collectives": srv["dp_collectives"]}
+        emit(row)
+        rows.append(row)
+        if srv["finished"] != 16 or gen != 16 * 32 or \
+                not row["tokens_equal_other_rank"] or \
+                srv["local_experts"] != local.n_experts:
+            bad.append(f"serve rank {r}: {srv['finished']}/16 finished, "
+                       f"{gen} tokens, ranks alike "
+                       f"{row['tokens_equal_other_rank']}")
+        if srv["tp_collectives"] != dict(zero, all_reduce=per * (
+                n_pre + n_dec), all_gather=n_dec) or \
+                srv["dp_collectives"] != dict(zero, all_gather=n_dec):
+            bad.append(f"serve rank {r}: collectives")
+        if [len(shapes[k]) for k in ("prefill", "decode")] != [1, 1]:
+            bad.append(f"serve rank {r}: moe_gmm shapes {shapes}")
+    if bad:
+        raise AssertionError(f"tp_serve: {bad}")
+    return {"rows": rows, "serve": got[0]["serve"]}
+
+
+# ---------------------------------------------------------------------------
 # Phases 15-16: the encoder-decoder and vision-language families
 # ---------------------------------------------------------------------------
 
@@ -2223,6 +2706,7 @@ def main() -> int:
         return 2
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import tp_local_config
     from repro_torch.kernels import _build
 
     smi = subprocess.run(
@@ -2378,6 +2862,12 @@ def main() -> int:
     # and backward on one NCCL rank against moe_apply, then two expert
     # ranks training full-width granite on the one card over gloo
     ep_rows = timed(phase_ep_train, torch, cfg, smi)
+    # tensor-parallel serving (phase 21): moe_gmm at one model rank of 2's
+    # serving shapes (E 16 at a decode step's C 8 and a prefill round's C
+    # 80), then one NCCL rank against the mesh-free batcher and two gloo
+    # ranks serving on the one card
+    g2_serve = timed(phase_moe_gmm, torch, g2, (("bfloat16", (8, 80)),))
+    tp_serve = timed(phase_tp_serve, torch, cfg, hymba, smi, srv)
 
     moe_main = next(r for r in moe_rows
                     if r["C"] == 8 and r["dtype"] == "bfloat16")
@@ -2391,8 +2881,9 @@ def main() -> int:
         {"name": "moe_gmm", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_gmm.cu",
          "replaces": "src/repro/kernels/moe_dispatch/moe_gmm.py:62",
-         "launches": srv["cli_launches"]["moe_gmm"],
-         "shape": "E=32 C=8 d=1024 f=512 bf16 (decode step)",
+         "launches": at_shape(srv["cli_moe_gmm_shapes"], moe_main),
+         "shape": "E=32 C=8 d=1024 f=512 bf16 (decode step; the serve "
+                  "CLI's launches at this shape)",
          "max_abs_err": moe_main["max_abs_err"], "ms": moe_main["kernel_ms"],
          "plain_ms": moe_main["plain_ms"], "bound_ms": moe_main["bound_ms"],
          "bound_by": moe_main["bound_by"],
@@ -2484,6 +2975,15 @@ def main() -> int:
                       "granite-moe-1b-a400m train step, launches per step)")
                      for name, src_row in (("moe_gmm", g2_moe),
                                            ("moe_gmm_bwd", g2_moe_bwd))]
+    # model rank 0 of 2 serving: its launches at each shape, counted in
+    # the run (one per layer and model launch, gated)
+    srv2 = tp_serve["serve"]
+    ep_cases += [("moe_gmm", row, at_shape(srv2["moe_gmm_shapes"], row),
+                  f"E=16 C={row['C']} d=1024 f=512 bf16 (model rank 0 of 2 "
+                  f"serving the closed batch over gloo; its launches at "
+                  f"this shape in {srv2['decode_steps']} decode steps and "
+                  f"{srv2['prefill_rounds']} prefill rounds)")
+                 for row in g2_serve]
     for name, src_row, n, shape in ep_cases:
         kernels.append({
             "name": name, "route": "cuda",

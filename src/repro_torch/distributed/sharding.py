@@ -38,14 +38,22 @@ columns), the per-channel vectors the specs replicate (``conv_b``, ``D``,
 ``dt_proj``'s bias, the MLP's ``b1``: a rank keeps its channels), and GQA
 with fewer KV heads than model ranks (a rank keeps the one KV head its
 query heads read).  Attention whose heads the model axis does not divide
-(hymba-1.5b's 25) runs whole on every rank.
+(hymba-1.5b's 25) runs whole on every rank.  :func:`tp_local_config` is
+the config of one model rank's shapes.
+
+Serving on a ``(data D, model m)`` mesh: a rank's decode caches
+(``models.model.init_cache`` on the mesh) hold its ``B / D`` rows, its KV
+heads (one where ``KV < m``) and its ``d_inner / m`` channels;
+:func:`tp_local_cache` cuts a whole cache tree so and
+:func:`tp_assemble_cache` puts the ranks' back together.  The reference
+stores decode caches otherwise (T over ``"model"``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import torch
@@ -109,28 +117,28 @@ def _model_size(mesh) -> int:
 
 def require_executable(mesh, what: str) -> None:
     """Raise ``NotImplementedError`` for what the port does not run on
-    ``mesh``: ``what="train"`` refuses an expert axis larger than 1
-    together with a model axis larger than 1 (the reference's ``(expert,
-    data, model)`` production layout); ``what="serve"`` (decode and
-    prefill steps, hence the batcher) and ``what="ep"`` (the EP round)
-    refuse a model axis larger than 1 (tensor-parallel serving; experts
-    split over both axes)."""
+    ``mesh``: ``what="train"`` (the train step) and ``what="serve"``
+    (decode and prefill steps, hence the batcher) refuse an expert axis
+    larger than 1 together with a model axis larger than 1 (the
+    reference's ``(expert, data, model)`` production layout);
+    ``what="ep"`` (the EP round) refuses a model axis larger than 1
+    (experts split over both axes)."""
     if mesh is None:
         return
-    if what == "train" and expert_axis_size(mesh) > 1 and \
+    if what in ("train", "serve") and expert_axis_size(mesh) > 1 and \
             _model_size(mesh) > 1:
         raise NotImplementedError(
-            f"a train step on a mesh with an expert axis of size "
+            ("a train step" if what == "train" else
+             "decode_step / prefill_step") +
+            f" on a mesh with an expert axis of size "
             f"{expert_axis_size(mesh)} and a 'model' axis of size "
             f"{_model_size(mesh)} is not ported yet (ROADMAP Queue 1: EP "
             "with a model axis)")
-    if what in ("serve", "ep") and _model_size(mesh) > 1:
+    if what == "ep" and _model_size(mesh) > 1:
         raise NotImplementedError(
-            f"a 'model' mesh axis of size {_model_size(mesh)} under "
-            + ("decode_step / prefill_step is not ported yet (ROADMAP "
-               "Queue 1: tensor-parallel serving)" if what == "serve" else
-               "the EP round is not ported yet: its experts would split "
-               "over the expert and the model axes"))
+            f"a 'model' mesh axis of size {_model_size(mesh)} under the EP "
+            "round is not ported yet: its experts would split over the "
+            "expert and the model axes")
 
 
 def shard_act(x):
@@ -383,6 +391,25 @@ def attn_split(cfg, m: int) -> bool:
     return H % m == 0 and (KV % m == 0 or m % KV == 0)
 
 
+def tp_local_config(cfg, m: int):
+    """The config whose shapes one of ``m`` model ranks computes with: the
+    query and KV heads over ``m`` where they split (else whole; one KV
+    head where ``KV < m``), E over ``m`` where it divides (else d_ff), the
+    MLP's d_ff, d_inner.  The vocab, the router and the norms keep their
+    whole widths."""
+    rep = {}
+    if cfg.n_heads and attn_split(cfg, m):
+        rep.update(n_heads=cfg.n_heads // m, d_head=cfg.head_dim,
+                   n_kv_heads=max(1, cfg.n_kv_heads // m))
+    if cfg.n_experts and cfg.n_experts % m == 0:
+        rep["n_experts"] = cfg.n_experts // m
+    elif cfg.d_ff:
+        rep["d_ff"] = cfg.d_ff // m
+    if cfg.d_inner:
+        rep["d_inner"] = cfg.d_inner // m
+    return replace(cfg, **rep)
+
+
 def _tp_rule(path: str, cfg, m: int) -> tuple:
     """How one leaf (``path``: '/'-joined keys) lies over ``m`` model
     ranks, on its trailing dims (leading stacked-layer dims are never
@@ -452,8 +479,11 @@ def _cut(t, rule, rank: int, m: int, cfg):
     if rule[0] in ("rep", "sum"):
         return t.clone()
     d = rule[1] % t.ndim
-    if rule[0] == "kv":
+    if rule[0] in ("kv", "head"):
         head = rank // (m // cfg.n_kv_heads)
+        if rule[0] == "head":
+            return t.narrow(d, head, 1).clone(
+                memory_format=torch.contiguous_format)
         return t.unflatten(d, (cfg.n_kv_heads, -1)).select(d, head) \
             .clone(memory_format=torch.contiguous_format)
     groups, n = rule[2], t.shape[d]
@@ -468,10 +498,12 @@ def _join(pieces, rule, m: int, cfg):
     if rule[0] in ("rep", "sum"):
         return pieces[0]
     d = rule[1] % pieces[0].ndim
-    if rule[0] == "kv":
+    if rule[0] in ("kv", "head"):
         per = m // cfg.n_kv_heads
-        return torch.stack([pieces[k * per] for k in
-                            range(cfg.n_kv_heads)], d).flatten(d, d + 1)
+        heads = [pieces[k * per] for k in range(cfg.n_kv_heads)]
+        if rule[0] == "head":
+            return torch.cat(heads, d)
+        return torch.stack(heads, d).flatten(d, d + 1)
     groups = rule[2]
     return torch.stack([p.unflatten(d, (groups, -1)) for p in pieces],
                        d + 1).flatten(d, d + 2)
@@ -537,3 +569,74 @@ def ep_summed(params, cfg, size: int):
     expert ranks and is summed over them (an EP config's router)."""
     return _map_rules(params, cfg, size, lambda _, r: r[0] == "sum",
                       axis="expert")
+
+
+# ---------------------------------------------------------------------------
+# Serving caches on a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+
+def data_size(mesh=None) -> int:
+    """The product of the fsdp axes' sizes under ``mesh`` (default: the
+    current mesh): how many ways a serving batch's rows split; 1 without
+    a mesh."""
+    mesh = mesh or current_mesh()
+    if mesh is None:
+        return 1
+    sizes = axis_sizes(mesh)
+    n = 1
+    for a in fsdp_axes(mesh):
+        n *= sizes[a]
+    return n
+
+
+def _cache_rules(path: str, cfg, m: int) -> tuple:
+    """How one cache leaf lies over the mesh: ``(model rule, row dim)``.
+    KV leaves ``(..., B, T, KV, dh)`` (self attention and ``cross_kv``)
+    split their KV heads over ``m`` where attention splits, one head per
+    rank where ``KV < m`` (``("head", dim)``: rank ``r`` holds head ``r //
+    (m / KV)``), else whole; mamba's ``conv`` ``(..., B, cw-1, Di)`` and
+    ``h`` ``(..., B, Di, N)`` split ``Di``.  The row dim ``B`` splits over
+    the data axes."""
+    leaf = path.strip("/").split("/")[-1]
+    if leaf == "conv":
+        return ("split", -1, 1), -3
+    if leaf == "h":
+        return ("split", -2, 1), -3
+    if not attn_split(cfg, m):
+        return ("rep",), -4
+    if cfg.n_kv_heads % m == 0:
+        return ("split", -2, 1), -4
+    return ("head", -2), -4
+
+
+def tp_local_cache(cache, cfg, model_rank: int, m: int, data_rank: int = 0,
+                   D: int = 1):
+    """The cache tree that rank ``(data_rank, model_rank)`` of a ``(data
+    D, model m)`` mesh holds, cut from a whole one (copies): the layout of
+    ``models.model.init_cache`` under that mesh."""
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, f"{path}/{k}") for k, v in node.items()}
+        rule, rows = _cache_rules(path, cfg, m)
+        t = _cut(node, ("split", rows, 1), data_rank, D, cfg)
+        return _cut(t, rule, model_rank, m, cfg)
+
+    return walk(cache, "")
+
+
+def tp_assemble_cache(pieces: list, cfg):
+    """The whole cache tree from every rank's (``pieces[d][r]``: the tree
+    of data rank ``d``, model rank ``r``): the inverse of
+    :func:`tp_local_cache`, bit for bit."""
+    D, m = len(pieces), len(pieces[0])
+
+    def walk(nodes, path):
+        if isinstance(nodes[0][0], dict):
+            return {k: walk([[n[k] for n in row] for row in nodes],
+                            f"{path}/{k}") for k in nodes[0][0]}
+        rule, rows = _cache_rules(path, cfg, m)
+        return _join([_join(row, rule, m, cfg) for row in nodes],
+                     ("split", rows, 1), D, cfg)
+
+    return walk(pieces, "")

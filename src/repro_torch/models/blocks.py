@@ -16,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from ..distributed.comm import copy_to_tp, reduce_from_tp
 from . import layers as L
 from . import moe as M
 from . import ssm as S
@@ -78,7 +79,7 @@ def layer_apply(p: dict, cfg, x: torch.Tensor, kind: str, *,
 
 def layer_decode_apply(p: dict, cfg, x: torch.Tensor, cache: dict,
                        cache_index, kind: str, *,
-                       ctx_kv: Optional[dict] = None):
+                       ctx_kv: Optional[dict] = None, tp=None):
     """One block, one token; ``cache`` = this layer's {"k", "v"} and/or
     {"conv", "h"} ({} for a ``cross`` layer), updated IN PLACE; ``ctx_kv``
     = this layer's precomputed cross K/V {"k", "v"} (B, T, KV, dh) for
@@ -86,23 +87,28 @@ def layer_decode_apply(p: dict, cfg, x: torch.Tensor, cache: dict,
 
     ``cache_index`` is a scalar or a per-row ``(B,)`` vector (each decode
     slot at its own position).  A sliding-window cache is a ring buffer:
-    the write index wraps and every entry is valid once it is full."""
+    the write index wraps and every entry is valid once it is full.
+    ``tp``: a model-axis ``Collectives`` when ``p`` and the caches are one
+    model rank's (q/k/v column-parallel on its heads, ``wo``, the FFN and
+    the mamba ``out_proj`` row-parallel)."""
     B = x.shape[0]
     h = L.norm_apply(p["ln1"], x, cfg.norm)
     if kind == "ssm":
-        y, _ = S.ssm_decode_apply(p["ssm"], cfg, h, cache)
+        y, _ = S.ssm_decode_apply(p["ssm"], cfg, h, cache, tp)
         return x + y, cache
     if kind == "cross":
-        x = x + L.cross_decode_apply(p["attn"], cfg, h, ctx_kv)
+        x = x + L.cross_decode_apply(p["attn"], cfg, h, ctx_kv, tp)
         h = L.norm_apply(p["ln2"], x, cfg.norm)
-        return x + _ffn(p, cfg, h, kind), cache
+        return x + _ffn(p, cfg, h, kind, tp), cache
     T = cache["k"].shape[1]
     ci = L._per_row(cache_index, B, x.device)
     idx = torch.remainder(ci, T) if cfg.sliding_window > 0 else ci
     pa = p["attn"]
-    q = L.dense_apply(pa["wq"], h).reshape(B, 1, cfg.n_heads, cfg.head_dim)
-    k = L.dense_apply(pa["wk"], h).reshape(B, 1, cfg.n_kv_heads, cfg.head_dim)
-    v = L.dense_apply(pa["wv"], h).reshape(B, 1, cfg.n_kv_heads, cfg.head_dim)
+    atp, wk, wv = L.tp_heads(pa, cfg, tp)
+    ha = copy_to_tp(h, atp)
+    q = L.dense_apply(pa["wq"], ha).reshape(B, 1, -1, cfg.head_dim)
+    k = L.dense_apply(wk, ha).reshape(B, 1, -1, cfg.head_dim)
+    v = L.dense_apply(wv, ha).reshape(B, 1, -1, cfg.head_dim)
     if cfg.rope_theta > 0:
         pos = ci[:, None]
         q = L.apply_rope(q, pos, cfg.rope_theta)
@@ -110,30 +116,32 @@ def layer_decode_apply(p: dict, cfg, x: torch.Tensor, cache: dict,
     kc = L.kv_cache_update(cache["k"], k, idx)
     vc = L.kv_cache_update(cache["v"], v, idx)
     valid = torch.clamp(ci + 1, max=T)
-    a = L.dense_apply(pa["wo"],
-                      L.decode_attention(q, kc, vc, valid).reshape(B, 1, -1))
+    a = reduce_from_tp(L.dense_apply(
+        pa["wo"], L.decode_attention(q, kc, vc, valid).reshape(B, 1, -1)),
+        atp)
     if kind == "hybrid":
-        y, _ = S.ssm_decode_apply(p["ssm"], cfg, h, cache)
+        y, _ = S.ssm_decode_apply(p["ssm"], cfg, h, cache, tp)
         a = (a + y) * 0.5
     x = x + a
     if kind == "dec":
         h = L.norm_apply(p["lnx"], x, cfg.norm)
-        x = x + L.cross_decode_apply(p["cross"], cfg, h, ctx_kv)
+        x = x + L.cross_decode_apply(p["cross"], cfg, h, ctx_kv, tp)
     h = L.norm_apply(p["ln2"], x, cfg.norm)
-    return x + _ffn(p, cfg, h, kind), cache
+    return x + _ffn(p, cfg, h, kind, tp), cache
 
 
 def layer_prefill_apply(p: dict, cfg, x: torch.Tensor, cache: dict,
-                        cache_index, count, kind: str):
+                        cache_index, count, kind: str, tp=None):
     """One block over a ``(B, C)`` token span (chunked prefill); the
-    layer's cache is updated IN PLACE.  Returns ``(x, cache)``."""
+    layer's cache is updated IN PLACE.  Returns ``(x, cache)``.  ``tp``
+    as in :func:`layer_decode_apply`."""
     if kind not in ("dense", "moe"):
         raise NotImplementedError(
             f"span prefill is only defined for dense/moe blocks, "
             f"not kind={kind!r}")
     h = L.norm_apply(p["ln1"], x, cfg.norm)
     a, _, _ = L.attn_prefill_apply(p["attn"], cfg, h, cache, cache_index,
-                                   count)
+                                   count, tp)
     x = x + a
     h = L.norm_apply(p["ln2"], x, cfg.norm)
-    return x + _ffn(p, cfg, h, kind), cache
+    return x + _ffn(p, cfg, h, kind, tp), cache

@@ -12,8 +12,9 @@ dh)`` caches).  Differences from the reference:
   bound is the "tri"/"window" schedule;
 * KV-cache writes update the cache tensor IN PLACE and return it;
 * sharding constraints are gone; on a ``"model"`` mesh axis
-  :func:`attn_apply` and :func:`mlp_apply` take one model rank's compute
-  shards (``distributed.sharding.tp_local_params``) and a ``tp``
+  :func:`attn_apply`, :func:`attn_prefill_apply`,
+  :func:`cross_decode_apply` and :func:`mlp_apply` take one model rank's
+  compute shards (``distributed.sharding.tp_local_params``) and a ``tp``
   :class:`~repro_torch.distributed.comm.Collectives`, and run Megatron's
   column-parallel / row-parallel split with one all-reduce after the
   row-parallel matmul (and one of the input's gradient in the backward).
@@ -186,6 +187,23 @@ def attn_init(gen, cfg, dtype) -> dict:
     }
 
 
+def tp_heads(p: dict, cfg, tp) -> tuple:
+    """``(tp, wk, wv)`` for an attention layer on the model ranks of
+    ``tp``: ``tp`` itself where the heads split over it
+    (:func:`~repro_torch.distributed.sharding.attn_split`), else None (the
+    layer runs whole on every rank); ``p``'s K/V weights, which where
+    ``KV < m`` several ranks hold alike (their gradient summed over
+    those ranks)."""
+    if tp is not None and not attn_split(cfg, tp.size):
+        tp = None
+    wk, wv = p["wk"], p["wv"]
+    if tp is not None and cfg.n_kv_heads % tp.size:
+        head = tp.rank // (tp.size // cfg.n_kv_heads)
+        wk, wv = ({k: share_kv(t, tp, head, cfg.n_kv_heads)
+                   for k, t in w.items()} for w in (wk, wv))
+    return tp, wk, wv
+
+
 def attn_apply(
     p: dict, cfg, x: torch.Tensor, *,
     kv_src: Optional[torch.Tensor] = None,
@@ -215,16 +233,10 @@ def attn_apply(
     window band, which is the reference's "tri"/"window" schedule."""
     B, S, d = x.shape
     h = cfg.head_dim
-    if tp is not None and not attn_split(cfg, tp.size):
-        tp = None
+    tp, wk, wv = tp_heads(p, cfg, tp)
     x = copy_to_tp(x, tp)
     src = x if kv_src is None else copy_to_tp(kv_src, tp)
     T = src.shape[1]
-    wk, wv = p["wk"], p["wv"]
-    if tp is not None and cfg.n_kv_heads % tp.size:
-        head = tp.rank // (tp.size // cfg.n_kv_heads)
-        wk, wv = ({k: share_kv(t, tp, head, cfg.n_kv_heads)
-                   for k, t in w.items()} for w in (wk, wv))
     q = dense_apply(p["wq"], x).reshape(B, S, -1, h)
     k = dense_apply(wk, src).reshape(B, T, -1, h)
     v = dense_apply(wv, src).reshape(B, T, -1, h)
@@ -310,16 +322,20 @@ def prefill_attention(
 
 
 def attn_prefill_apply(p: dict, cfg, x: torch.Tensor, cache: dict,
-                       cache_index, count) -> tuple:
+                       cache_index, count, tp=None) -> tuple:
     """Span prefill: project a (B, C, d) chunk, write its K/V IN PLACE at
     per-row cache indices (``count`` masks each row's valid lanes),
     attend causally over the cache.  Returns ``(out, k_cache, v_cache)``.
-    RoPE is applied at the absolute positions ``cache_index + lane``."""
+    RoPE is applied at the absolute positions ``cache_index + lane``.
+    With ``tp`` as in :func:`attn_apply`: the rank's heads, its cache of
+    their K/V, ``wo``'s partial product all-reduced."""
     B, C, d = x.shape
-    H, KV, h = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = dense_apply(p["wq"], x).reshape(B, C, H, h)
-    k = dense_apply(p["wk"], x).reshape(B, C, KV, h)
-    v = dense_apply(p["wv"], x).reshape(B, C, KV, h)
+    h = cfg.head_dim
+    tp, wk, wv = tp_heads(p, cfg, tp)
+    x = copy_to_tp(x, tp)
+    q = dense_apply(p["wq"], x).reshape(B, C, -1, h)
+    k = dense_apply(wk, x).reshape(B, C, -1, h)
+    v = dense_apply(wv, x).reshape(B, C, -1, h)
     ci = _per_row(cache_index, B, x.device)
     cnt = torch.as_tensor(count, device=x.device).long()
     if cfg.rope_theta > 0:
@@ -329,17 +345,20 @@ def attn_prefill_apply(p: dict, cfg, x: torch.Tensor, cache: dict,
     k_cache = kv_cache_update_span(cache["k"], k, ci, cnt)
     v_cache = kv_cache_update_span(cache["v"], v, ci, cnt)
     out = prefill_attention(q, k_cache, v_cache, ci)
-    y = dense_apply(p["wo"], out.reshape(B, C, H * h))
+    y = reduce_from_tp(dense_apply(p["wo"], out.reshape(B, C, -1)), tp)
     return y, k_cache, v_cache
 
 
 def cross_decode_apply(p: dict, cfg, x: torch.Tensor,
-                       cross_kv: dict) -> torch.Tensor:
+                       cross_kv: dict, tp=None) -> torch.Tensor:
     """One-token cross attention against precomputed K/V ``cross_kv``
-    {"k", "v"} (B, T, KV, dh): every one of the T entries is attended."""
+    {"k", "v"} (B, T, KV, dh): every one of the T entries is attended.
+    With ``tp`` as in :func:`attn_apply` (``cross_kv`` holds the rank's
+    KV heads)."""
     B = x.shape[0]
-    H, h = cfg.n_heads, cfg.head_dim
-    q = dense_apply(p["wq"], x).reshape(B, 1, H, h)
+    tp, _, _ = tp_heads(p, cfg, tp)
+    q = dense_apply(p["wq"], copy_to_tp(x, tp)).reshape(B, 1, -1,
+                                                        cfg.head_dim)
     T = cross_kv["k"].shape[1]
     out = decode_attention(q, cross_kv["k"], cross_kv["v"], T)
-    return dense_apply(p["wo"], out.reshape(B, 1, H * h))
+    return reduce_from_tp(dense_apply(p["wo"], out.reshape(B, 1, -1)), tp)

@@ -15,13 +15,15 @@ precomputed K/V, and :func:`decode_step` / :func:`prefill_step` update
 them IN PLACE (each layer writes through a view of its slice).
 
 On a mesh whose ``"model"`` axis is ``m > 1`` (:func:`forward`,
-:func:`loss_fn`; the train step) ``params`` is one model rank's compute
-shards (``distributed.sharding.tp_local_params``): the embedding is
+:func:`loss_fn`, :func:`decode_step`, :func:`prefill_step`; the train
+step and the batcher) ``params`` is one model rank's compute shards
+(``distributed.sharding.tp_local_params``): the embedding is
 vocab-parallel (ids outside the rank's rows masked, then all-reduced),
-the head column-parallel (``forward`` returns this rank's vocab shard of
-the logits) and the loss a vocab-parallel cross entropy.  Decoding and
-span prefill on a model axis raise (ROADMAP Queue 1: tensor-parallel
-serving).
+the head column-parallel (the logits are this rank's vocab shard) and the
+loss a vocab-parallel cross entropy; the caches of :func:`init_cache` are
+the rank's (its KV heads and ``d_inner`` channels, its rows of the
+batch over the data axes), and :func:`vocab_argmax` reduces the sharded
+logits to the next tokens.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ from ..distributed.comm import (
     copy_to_tp, expert_comm, model_comm, reduce_from_tp,
 )
 from ..distributed.sharding import (
-    current_mesh, require_executable, shard_act, shard_logits,
+    current_mesh, data_size, model_size, require_executable, shard_act,
+    shard_logits, tp_local_config,
 )
 from . import blocks as B
 from . import layers as L
@@ -302,7 +305,8 @@ def loss_fn(params, cfg, batch, tp=None, **kw):
 
 
 def init_cache(cfg: ModelConfig, bsz: int, cache_len: int,
-               device: Optional[Union[str, torch.device]] = None) -> dict:
+               device: Optional[Union[str, torch.device]] = None,
+               mesh=None) -> dict:
     """Zero caches on ``device`` (``None`` = the card), the reference's
     tree: per stack, leaves with its leading layer dims — KV ``{"k",
     "v"}`` of shape ``(L, bsz, T, KV, dh)`` for self attention (a
@@ -312,7 +316,28 @@ def init_cache(cfg: ModelConfig, bsz: int, cache_len: int,
     the encoder stack and ``{}`` for vlm's cross layers.  encdec and vlm
     add ``cross_kv`` {"k", "v"}, the cross layers' K/V over the encoder
     output or the vision embeddings, ``(n_layers, bsz, enc_seq, KV, dh)``
-    or ``(g, bsz, vis_seq, KV, dh)``, zero-filled: the caller fills it."""
+    or ``(g, bsz, vis_seq, KV, dh)``, zero-filled: the caller fills it.
+
+    On ``mesh`` (default: the current mesh) of data size ``D`` (the fsdp
+    axes) and model size ``m``, the caches are this rank's: ``bsz / D``
+    rows, and the shapes of ``distributed.sharding.tp_local_config(cfg,
+    m)`` — ``KV / m`` heads where attention splits, the one KV head its
+    query heads read where ``KV < m`` (then ``m / KV`` ranks hold a copy
+    of each head: the whole cache's KV memory ``m / KV`` times over), all
+    heads where they do not split (hymba-1.5b's 25 over 2), ``d_inner /
+    m`` channels of ``conv`` and ``h``, ``cross_kv`` over the rank's KV
+    heads (``distributed.sharding.tp_local_cache`` cuts a whole cache so,
+    ``tp_assemble_cache`` puts one back together).  The reference stores
+    its caches otherwise (``launch/dryrun.py`` ``_cache_shardings``: T
+    over ``"model"``, since KV heads rarely split 16 ways) and computes
+    the same numbers."""
+    mesh = mesh if mesh is not None else current_mesh()
+    if mesh is not None:
+        D = data_size(mesh)
+        if bsz % D:
+            raise ValueError(f"batch of {bsz} rows does not split over "
+                             f"{D} data ranks")
+        cfg, bsz = tp_local_config(cfg, model_size(mesh)), bsz // D
     dev = resolve_device(device)
     dt = torch_dtype(cfg.dtype)
     out = {}
@@ -344,44 +369,56 @@ def init_cache(cfg: ModelConfig, bsz: int, cache_len: int,
 
 
 def decode_step(params: dict, cfg: ModelConfig, cache: dict,
-                batch: dict) -> tuple:
+                batch: dict, tp=None) -> tuple:
     """One token for every sequence against the cache.
 
     batch = {"tokens": (B, 1), "cache_index": () or (B,)} — returns
     (logits (B, padded_vocab), cache), the cache updated IN PLACE.
     encdec and vlm read the cross layers' K/V from ``cache["cross_kv"]``
-    (decoder layer ``i`` or group ``gi``)."""
+    (decoder layer ``i`` or group ``gi``).
+
+    ``tp``: the model-axis ``Collectives`` (default, as in
+    :func:`forward`: one over the current mesh's model axis when it is
+    larger than 1).  With it ``params`` are this rank's compute shards,
+    ``cache`` this rank's (:func:`init_cache` on the mesh) and ``batch``
+    this rank's rows; the logits are its vocab shard, ``(B,
+    padded_vocab / m)`` (:func:`vocab_argmax` picks the tokens)."""
     require_executable(current_mesh(), "serve")
+    if tp is None:
+        tp = model_comm(current_mesh())
     ci = batch["cache_index"]
-    x = shard_act(_embed(params, batch["tokens"], None))
+    x = shard_act(_embed(params, batch["tokens"], tp))
     if cfg.family == "vlm":
         selfp, selfc = params["self_layers"], cache["self_layers"]
         for gi in range(_n_layers(params["cross_layers"])):
             gp, gc = _layer(selfp, gi), _layer(selfc, gi)
             for j in range(_n_layers(gp)):
                 x, _ = B.layer_decode_apply(_layer(gp, j), cfg, x,
-                                            _layer(gc, j), ci, "dense")
+                                            _layer(gc, j), ci, "dense",
+                                            tp=tp)
             x, _ = B.layer_decode_apply(
                 _layer(params["cross_layers"], gi), cfg, x, {}, ci, "cross",
-                ctx_kv=_layer(cache["cross_kv"], gi))
+                ctx_kv=_layer(cache["cross_kv"], gi), tp=tp)
     elif cfg.family == "encdec":
         stack = params["dec_layers"]
         for i in range(_n_layers(stack)):
             x, _ = B.layer_decode_apply(
                 _layer(stack, i), cfg, x, _layer(cache["dec_layers"], i), ci,
-                "dec", ctx_kv=_layer(cache["cross_kv"], i))
+                "dec", ctx_kv=_layer(cache["cross_kv"], i), tp=tp)
     else:
         kind = _plan(cfg)[0][1]
         stack = params["layers"]
         for i in range(_n_layers(stack)):
             x, _ = B.layer_decode_apply(_layer(stack, i), cfg, x,
-                                        _layer(cache["layers"], i), ci, kind)
+                                        _layer(cache["layers"], i), ci, kind,
+                                        tp=tp)
     x = L.norm_apply(params["final_norm"], x, cfg.norm)
-    return shard_logits((x @ _head(params, cfg))[:, 0]), cache
+    return shard_logits((copy_to_tp(x, tp) @ _head(params, cfg))[:, 0]), \
+        cache
 
 
 def prefill_step(params: dict, cfg: ModelConfig, cache: dict,
-                 batch: dict) -> tuple:
+                 batch: dict, tp=None) -> tuple:
     """Write a span of prompt tokens through the model at per-row cache
     indices — the chunked-prefill primitive of the continuous batcher.
 
@@ -396,8 +433,14 @@ def prefill_step(params: dict, cfg: ModelConfig, cache: dict,
     Every chunk runs through the same static ``(B, C)`` buffer and each
     query attends over the full cache, so chunked prefill is bitwise
     equal to whole-prompt prefill.  Only full-cache attention families
-    (dense/moe, no sliding window) are supported."""
+    (dense/moe, no sliding window) are supported.  ``tp``, and the
+    params, cache, rows and logits on a model axis, as in
+    :func:`decode_step`; chunked prefill stays bitwise equal to whole
+    prefill there, each rank's partial sums reduced alike whatever the
+    chunking."""
     require_executable(current_mesh(), "serve")
+    if tp is None:
+        tp = model_comm(current_mesh())
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"prefill_step needs a position-indexed KV cache "
@@ -411,13 +454,36 @@ def prefill_step(params: dict, cfg: ModelConfig, cache: dict,
     cache_index = torch.as_tensor(batch["cache_index"], device=dev).long()
     count = torch.as_tensor(batch["count"], device=dev).long()
     kind = _plan(cfg)[0][1]
-    x = shard_act(_embed(params, tokens, None))
+    x = shard_act(_embed(params, tokens, tp))
     stack = params["layers"]
     for i in range(_n_layers(stack)):
         x, _ = B.layer_prefill_apply(_layer(stack, i), cfg, x,
                                      _layer(cache["layers"], i),
-                                     cache_index, count, kind)
+                                     cache_index, count, kind, tp=tp)
     x = L.norm_apply(params["final_norm"], x, cfg.norm)
     last = torch.clamp(count - 1, 0, tokens.shape[1] - 1)
     x = torch.gather(x, 1, last[:, None, None].expand(-1, 1, x.shape[-1]))
-    return shard_logits((x @ _head(params, cfg))[:, 0]), cache
+    return shard_logits((copy_to_tp(x, tp) @ _head(params, cfg))[:, 0]), \
+        cache
+
+
+def vocab_argmax(logits: torch.Tensor, vocab: int, tp=None) -> torch.Tensor:
+    """The next tokens (B,) int64: the argmax of each row of ``logits`` over
+    the real vocab ``[0, vocab)`` (the padded tail's logits are arbitrary
+    weights).  With ``tp`` the logits are this rank's vocab shard (global
+    ids ``[rank·V, (rank+1)·V)``): each rank takes its shard's maximum and
+    its first global id, one all-gather brings every rank's pair
+    (exactly, as float64), and the largest value wins, the lowest id on a
+    tie, so the result is ``torch.argmax`` over the whole row."""
+    if tp is None:
+        return torch.argmax(logits[:, :vocab], dim=-1)
+    V = logits.shape[-1]
+    lo = tp.rank * V
+    real = torch.arange(lo, lo + V, device=logits.device) < vocab
+    vals = torch.where(real, logits.double(), -torch.inf)
+    idx = torch.argmax(vals, dim=-1)
+    best = torch.gather(vals, -1, idx[:, None])[:, 0]
+    pairs = tp.all_gather(torch.stack([best, (idx + lo).double()], -1)[None])
+    best = pairs[..., 0].amax(dim=0)
+    ids = torch.where(pairs[..., 0] == best, pairs[..., 1], torch.inf)
+    return ids.amin(dim=0).long()

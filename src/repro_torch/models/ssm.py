@@ -19,7 +19,8 @@ On a ``"model"`` mesh axis (``tp``) a rank holds ``d_inner / m`` channels
 ``z`` in ``in_proj``, of the conv, ``dt_proj``, ``A_log`` and ``D``):
 ``in_proj`` and ``dt_proj`` are column-parallel, ``x_proj`` and
 ``out_proj`` row-parallel, so ``(dt, B, C)`` are all-reduced before the
-split and ``ssm_scan`` runs at ``d_inner / m``.
+split and ``ssm_scan`` runs at ``d_inner / m``; decode likewise, on the
+rank's ``conv`` / ``h`` caches of its channels.
 """
 
 from __future__ import annotations
@@ -138,18 +139,24 @@ def ssm_apply(p: dict, cfg, x: torch.Tensor, chunk: int = 256, tp=None
 # ---------------------------------------------------------------------------
 
 
-def ssm_decode_apply(p: dict, cfg, x: torch.Tensor, cache: dict) -> tuple:
+def ssm_decode_apply(p: dict, cfg, x: torch.Tensor, cache: dict, tp=None
+                     ) -> tuple:
     """x (B, 1, D); ``cache`` holds this layer's ``conv`` and ``h``, which
-    are updated IN PLACE.  Returns ``(y (B, 1, D), cache)``."""
-    xi, z = torch.chunk(dense_apply(p["in_proj"], x), 2, dim=-1)
+    are updated IN PLACE.  Returns ``(y (B, 1, D), cache)``.  With ``tp``
+    as in :func:`ssm_apply`: ``p`` and the cache hold this rank's
+    channels, ``x_proj``'s and ``out_proj``'s partial products are
+    all-reduced."""
+    xi, z = torch.chunk(dense_apply(p["in_proj"], copy_to_tp(x, tp)), 2,
+                        dim=-1)
     xi, conv_state = _causal_conv(xi, p["conv_w"], p["conv_b"],
                                   state=cache["conv"])
     xi = F.silu(xi)
-    dA, dBx, Cc = _ssm_params(p, cfg, xi[:, 0])  # (B, Di, N), (B, N)
+    dA, dBx, Cc = _ssm_params(p, cfg, xi[:, 0], tp)  # (B, Di, N), (B, N)
     h = dA * cache["h"] + dBx
     y = torch.einsum("bdn,bn->bd", h, Cc) + xi[:, 0].float() * p["D"]
     y = y * F.silu(z[:, 0].float())
-    out = dense_apply(p["out_proj"], y.to(x.dtype))[:, None]
+    out = reduce_from_tp(dense_apply(p["out_proj"], y.to(x.dtype)),
+                         tp)[:, None]
     cache["conv"].copy_(conv_state)
     cache["h"].copy_(h)
     return out, cache

@@ -89,6 +89,14 @@ requests still in-slot past it are evicted and counted ``expired``, and
 the request's one scope join uses a timeout derived from the same SLO
 (:class:`~repro.sched.executors.JoinOutcome` distinguishes "timed out"
 from "done with failures").
+
+On a ``(data D, model m)`` mesh (``mesh=``; None, the default, is one
+process, whatever mesh is current) every rank runs this same host scheduler over all ``n_slots`` — the same
+admissions, prefill chunks and virtual-time costs — and launches on its
+``n_slots / D`` rows with its compute shards (tensor-parallel serving in
+:mod:`repro_torch.models.model`); the next tokens are reduced over the
+model ranks' vocab shards (``MDL.vocab_argmax``) and all-gathered over
+the data ranks, so every rank's scheduler sees every slot.
 """
 
 from __future__ import annotations
@@ -102,6 +110,10 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..distributed.comm import Collectives, mesh_group
+from ..distributed.sharding import (
+    data_size, fsdp_axes, mesh_context, require_executable,
+)
 from ..models import model as MDL
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs
@@ -227,7 +239,8 @@ class ContinuousBatcher:
                  retry: Optional[RetryPolicy] = None,
                  slos: Optional[Dict[str, int]] = None,
                  monitor: Optional[SloMonitor] = None,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 mesh=None):
         assert isinstance(policy, SchedPolicy) \
             or policy in ("dlbc", "lc", "wdlbc")
         assert prefill_mode in ("chunked", "whole"), prefill_mode
@@ -246,6 +259,20 @@ class ContinuousBatcher:
         self.params = params
         #: where the cache lives and the launches run (None = the card)
         self.device = resolve_device(device)
+        #: the mesh the cache and the launches live on (None = one
+        #: process; only this argument sets it: both run under
+        #: ``mesh_context(self.mesh)``).  Every rank runs this same
+        #: scheduler over all ``n_slots``; its launches carry its rows
+        #: (``_rows``) and ``params`` are its compute shards.  ``tp`` /
+        #: ``dp`` are the model and data axes' counted collectives, issued
+        #: at any axis size (a one-rank one is a copy)
+        self.mesh = mesh
+        self.tp = self.dp = None
+        self._rows = slice(0, n_slots)
+        if mesh is not None:
+            require_executable(mesh, "serve")
+            self.tp = Collectives(mesh.get_group("model"))
+            self.dp = Collectives(mesh_group(mesh, fsdp_axes(mesh)))
         self.n_slots = n_slots
         self.cache_len = cache_len
         #: static width of the batched prefill launch buffer — every
@@ -291,8 +318,14 @@ class ContinuousBatcher:
                     self.registry.get(name).slo_steps = int(slo)
                 except KeyError:
                     pass
-        self.cache = MDL.init_cache(cfg, n_slots, cache_len,
-                                    device=self.device)
+        with mesh_context(mesh):
+            # on a mesh this rank's rows (init_cache splits them over the
+            # data ranks, and refuses a count that does not split)
+            self.cache = MDL.init_cache(cfg, n_slots, cache_len,
+                                        device=self.device)
+        if mesh is not None:
+            n = n_slots // data_size(mesh)
+            self._rows = slice(self.dp.rank * n, (self.dp.rank + 1) * n)
         self.slot_req: List[Optional[Request]] = [None] * n_slots
         self.slot_pos = np.zeros(n_slots, np.int32)
         #: one FinishScope per in-flight request, spanning all its
@@ -320,6 +353,25 @@ class ContinuousBatcher:
         ``slot_pos`` right after the launch, so the launch must never
         alias it (``torch.tensor`` copies; ``from_numpy`` would not)."""
         return torch.tensor(a, dtype=torch.int64, device=self.device)
+
+    def _launch(self, step, batch: Dict[str, np.ndarray]) -> tuple:
+        """``step`` (``MDL.prefill_step`` / ``MDL.decode_step``) on COPIES
+        of this rank's rows of the host arrays in ``batch``."""
+        rows = {k: self._on_device(v[self._rows]) for k, v in batch.items()}
+        with mesh_context(self.mesh):
+            return step(self.params, self.cfg, self.cache, rows, tp=self.tp)
+
+    def _next_tokens(self, logits: torch.Tensor) -> np.ndarray:
+        """Every slot's next token: the argmax over the REAL vocab (the
+        padded tail rows of the lm_head are arbitrary init values, and
+        generated ids must stay submittable — no silent % vocab
+        anywhere), reduced over the model ranks' vocab shards, then
+        all-gathered over the data ranks' rows.  One device→host copy
+        per step."""
+        nxt = MDL.vocab_argmax(logits, self.cfg.vocab, self.tp)
+        if self.dp is not None:
+            nxt = self.dp.all_gather(nxt)
+        return nxt.cpu().numpy()
 
     # -- admission (DLBC vs LC vs weighted-DLBC) -----------------------------
 
@@ -524,11 +576,9 @@ class ContinuousBatcher:
                                 {"slots": len(chunk_of),
                                  "tokens": int(sum(chunk_of.values()))}
                                 if obs.enabled() else None):
-                _, self.cache = MDL.prefill_step(
-                    self.params, self.cfg, self.cache,
-                    {"tokens": self._on_device(tokens),
-                     "cache_index": self._on_device(self.slot_pos),
-                     "count": self._on_device(counts)})
+                _, self.cache = self._launch(MDL.prefill_step, {
+                    "tokens": tokens, "cache_index": self.slot_pos,
+                    "count": counts})
             cost += max(chunk_of.values())
             for i, c in chunk_of.items():
                 st = self._prefilling[i]
@@ -597,17 +647,9 @@ class ContinuousBatcher:
                 # ITS OWN index, so a freshly refilled slot is isolated
                 # from a neighbour deep into its sequence
                 # (refill-mid-decode safety).
-                cache_index = self._on_device(self.slot_pos)
-                logits, self.cache = MDL.decode_step(
-                    self.params, self.cfg, self.cache,
-                    {"tokens": self._on_device(tokens),
-                     "cache_index": cache_index})
-                # argmax over the REAL vocab: the padded tail rows of the
-                # lm_head are arbitrary init values, and generated ids
-                # must stay submittable (no silent % vocab anywhere).
-                # One device→host copy per step.
-                nxt = torch.argmax(logits[:, :self.cfg.vocab],
-                                   dim=-1).cpu().numpy()
+                logits, self.cache = self._launch(MDL.decode_step, {
+                    "tokens": tokens, "cache_index": self.slot_pos})
+                nxt = self._next_tokens(logits)
         with obs.trace_span("serve", "complete"):
             plan = faults.active()
             for i in decoding:

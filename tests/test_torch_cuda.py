@@ -58,6 +58,8 @@ def _t(a, dtype, dev):
     # mixtral-8x7b's expert widths at E = 2: one token, a decode step
     # (the down kernel's K split four ways) and the bf16 forward's C = 160
     (2, 1, 4096, 14336), (2, 8, 4096, 14336), (2, 160, 4096, 14336),
+    # granite at one model rank of 2 serving: a decode step, a prefill round
+    (16, 8, 1024, 512), (16, 80, 1024, 512),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_moe_gmm_kernel_matches_plain(cuda, E, C, d, f, dtype):
@@ -899,3 +901,48 @@ def test_ep_round_world_size_one_matches_moe_apply(cuda, nccl_one, dtype):
     tol = 1e-5 if dt == torch.float32 else 5 * 2e-2
     assert float((got.float() - want.float()).abs().max()) <= \
         tol * max(1.0, float(want.float().abs().max()))
+
+
+def test_batcher_on_one_rank_mesh_bitwise_on_card(cuda, nccl_one,
+                                                  monkeypatch):
+    """granite-moe SMOKE (bf16) serving a closed batch without a mesh and on
+    a ``(data 1, model 1)`` NCCL mesh, under deterministic algorithms: the
+    tokens bitwise equal (each collective of one rank is a copy); on the
+    mesh the model axis's all-reduces are 1 + 2 per layer per model
+    launch, and each decode step all-gathers once over each axis."""
+    from repro_torch.device import parity_mode
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.serve import batcher as SB
+
+    cfg = get_config("granite-moe-1b-a400m", smoke=True)
+    rng = np.random.default_rng(3)
+    spec = [(r, rng.integers(0, cfg.vocab, size=int(n)).tolist())
+            for r, n in enumerate(rng.integers(2, 40, size=10))]
+    params = TM.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(0), device=cuda)
+    calls = {"prefill_step": 0, "decode_step": 0}
+    for name in calls:
+        def counted(*a, _real=getattr(TM, name), _name=name, **k):
+            calls[_name] += 1
+            return _real(*a, **k)
+        monkeypatch.setattr(TM, name, counted)
+    out = {}
+    parity_mode(deterministic=True)
+    try:
+        for mesh in (None, make_test_mesh(data=1, model=1)):
+            calls.update(prefill_step=0, decode_step=0)
+            b = SB.ContinuousBatcher(cfg, params, n_slots=4, cache_len=64,
+                                     prefill_chunk=8, device=cuda,
+                                     mesh=mesh)
+            reqs = [SB.Request(rid=r, prompt=p, max_new=8)
+                    for r, p in spec]
+            b.run(reqs)
+            out[mesh is None] = [r.tokens for r in reqs]
+    finally:
+        parity_mode(deterministic=False)
+    assert out[True] == out[False]
+    n_dec = calls["decode_step"]
+    assert n_dec > 0 and b.tp.counts["all_gather"] == n_dec
+    assert b.dp.counts["all_gather"] == n_dec
+    assert b.tp.counts["all_reduce"] == (1 + 2 * cfg.n_layers) * (
+        calls["prefill_step"] + n_dec)

@@ -20,10 +20,10 @@ collectives in ``train/train_step.py``, per-rank checkpoints) on the CPU.
   bucket plan) and follow the reference's ladder.  The ``afe`` step's
   2-rank checkpoint, restored at world size 1, equals the 2-rank state;
   ``run_training`` on the 2 ranks crashes, resumes from its per-rank
-  checkpoint and ends where an uninterrupted run does.  A model axis of
-  2 under ``decode_step`` / ``prefill_step`` raises (tensor-parallel
-  serving is not ported; the train step on it is
-  ``tests/test_torch_tp.py``'s).
+  checkpoint and ends where an uninterrupted run does.  An expert axis
+  beside a model axis under ``decode_step`` / ``prefill_step`` raises
+  (tensor-parallel serving itself is ``tests/test_torch_tp_serve.py``'s,
+  the train step on a model axis ``tests/test_torch_tp.py``'s).
 * **Single process vs the reference** — each policy's step against the
   reference's, at ``tests/test_torch_train.py``'s tolerances.
 """
@@ -528,10 +528,10 @@ def test_trainer_resumes_on_two_ranks(dist_results):
 
 
 @pytest.mark.parametrize("entry", ["decode_step", "prefill_step"])
-def test_model_axis_serving_raises(entry):
-    """Tensor-parallel serving is not ported: on a mesh whose model axis is
-    2 the decode and span-prefill steps (hence the batcher) refuse, naming
-    the ROADMAP item."""
+def test_expert_and_model_axes_serving_raises(entry):
+    """Tensor-parallel serving runs (``tests/test_torch_tp_serve.py``); what
+    the decode and span-prefill steps (hence the batcher) still refuse is
+    an expert axis beside a model axis, naming the ROADMAP item."""
     cfg = dataclasses.replace(t_get_config(ARCH, smoke=True),
                               dtype="float32")
     params = TM.init_params(cfg, torch.Generator().manual_seed(0),
@@ -540,9 +540,9 @@ def test_model_axis_serving_raises(entry):
     batch = {"tokens": torch.zeros((2, 1), dtype=torch.long),
              "cache_index": torch.zeros(2, dtype=torch.long),
              "count": torch.ones(2, dtype=torch.long)}
-    with mesh_context(MeshShape(("data", "model"), (1, 2))):
+    with mesh_context(MeshShape(("expert", "data", "model"), (2, 1, 2))):
         with pytest.raises(NotImplementedError,
-                           match="tensor-parallel serving"):
+                           match="EP with a model axis"):
             getattr(TM, entry)(params, cfg, cache, batch)
 
 

@@ -54,8 +54,8 @@ from repro_torch.ckpt.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config as t_get_config  # noqa: E402
 from repro_torch.configs.registry import ARCH_IDS  # noqa: E402
 from repro_torch.distributed.sharding import (  # noqa: E402
-    MeshShape, fsdp_layout, mesh_context, tp_assemble, tp_local_params,
-    tp_owned,
+    MeshShape, fsdp_layout, mesh_context, tp_assemble, tp_local_config,
+    tp_local_params, tp_owned,
 )
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.sched import FixedCapacity  # noqa: E402
@@ -612,3 +612,27 @@ def test_in_proj_keeps_each_ranks_xi_and_z():
         assert torch.equal(xi, torch.arange(r * h, (r + 1) * h).float())
         assert torch.equal(z, torch.arange(di + r * h,
                                            di + (r + 1) * h).float())
+
+
+def _shapes_by_path(tree, path=""):
+    if isinstance(tree, dict):
+        return {p: v for k in tree
+                for p, v in _shapes_by_path(tree[k], f"{path}/{k}").items()}
+    return {path: tuple(tree.shape)}
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_local_config_has_the_local_params_shapes(name):
+    """``tp_local_config(cfg, 2)``'s parameter shapes are each rank's
+    compute shards' (``tp_local_params``), but for the vocab-parallel
+    embedding and head and the replicated router, which it keeps whole."""
+    arch, rep = CASES[name]
+    cfg = dataclasses.replace(t_get_config(arch, smoke=True), **rep)
+    local = _shapes_by_path(TM.param_shapes(tp_local_config(cfg, 2)))
+    for r in range(2):
+        cut = _shapes_by_path(tp_local_params(TM.param_shapes(cfg), cfg, r,
+                                              2))
+        assert sorted(cut) == sorted(local)
+        for path, shape in cut.items():
+            if path.split("/")[-1] not in ("embed", "lm_head", "router"):
+                assert shape == local[path], path
