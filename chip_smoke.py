@@ -107,13 +107,15 @@ one cross layer, since its ~180 GB of bf16 weights exceed the card):
     crash after step 5, then the same run resumes from step 4) against an
     uninterrupted run, final losses within 1e-5.
 14. hymba-1.5b training: ``train_grads`` at full width, 2 layers, fp32,
-    the scan in two chained 128-token chunks; ``train`` at full width (32
-    layers, bf16), seq 1024, global batch 8 in 8 microbatches, four AdamW
-    steps without ``remat`` and four with it, with exactly 32 × 8
-    launches of ``flash_attention_bwd`` and 32 × 4 × 8 of
-    ``ssm_scan_bwd`` per step, and of the forwards 1× / 2× (attention)
-    and 2× / 3× (the scan) that; ``train_fit``: the same step in 4
-    microbatches of 2 sequences, or a row saying it does not fit.
+    the scan in two chained 128-token chunks; ``train`` at full width and
+    8 of its 32 layers (bf16; the depth cut keeps the whole script well
+    inside its time limit), seq 1024, global batch 8 in 8
+    microbatches, four AdamW steps without ``remat`` and four with it,
+    with exactly 8 × 8 launches of ``flash_attention_bwd`` and 8 × 4 × 8
+    of ``ssm_scan_bwd`` per step, and of the forwards 1× / 2× (attention)
+    and 2× / 3× (the scan) that; ``train_fit``: the same step at all 32
+    layers in 4 microbatches of 2 sequences, or a row saying it does not
+    fit.
 15. whisper-medium: ``flash_attention`` and its backward at its shapes
     (the encoder's non-causal S = T = 1500 at B 1 and at a training
     microbatch's B 4, cross attention of 448 decoder positions against
@@ -135,8 +137,9 @@ one cross layer, since its ~180 GB of bf16 weights exceed the card):
     cross launches), and ``wide_bf16``, a timed 512-token forward with
     10 ``flash_attention`` launches.
 17. ``dist_policies`` (after phase 13): a one-rank NCCL process group and
-    a ``make_test_mesh(data=1, model=1)`` mesh; full-width granite takes
-    two AdamW steps under each policy (``unopt``, ``lc``, ``afe``,
+    a ``make_test_mesh(data=1, model=1)`` mesh; granite at full width and
+    4 of its 24 layers takes two AdamW steps under each policy (``unopt``,
+    ``lc``, ``afe``,
     ``afe_bucket``; seq 1024, batch 8 in 2 microbatches) on the mesh and
     without it, under deterministic algorithms: params bitwise equal,
     each step's collective counts those derived from the param tree and
@@ -168,8 +171,10 @@ one cross layer, since its ~180 GB of bf16 weights exceed the card):
     ``moe_gmm_bwd`` launch and two all-to-alls and one all-gather each
     way per round, with both forward + backward times.  (b) Two
     processes on the one card over gloo on an ``(expert 2, data 1,
-    model 1)`` mesh, full-width bf16 granite with ``expert_parallel``
-    (E 16 per rank), ``lc`` and ``afe`` for 2 steps at C 1280 and one
+    model 1)`` mesh, bf16 granite at full width and 4 of its 24 layers
+    (phase 22 runs the expert axis at full depth) with
+    ``expert_parallel`` (E 16 per rank), ``lc`` and ``afe`` for 2 steps
+    at C 1280 and one
     ``lc`` step at capacity factor 4: losses within 2e-2 of the
     one-process steps (and, at ample capacity, gradient norms), launches
     and both axes' collectives exact, per-rank step ms and peak memory.
@@ -190,12 +195,33 @@ one cross layer, since its ~180 GB of bf16 weights exceed the card):
     launches per model launch and the collectives exact; step p50 / p99,
     tokens/s, peak memory per rank against phase 5's one process, and the
     share of tokens equal to phase 5's.
+22. ``ep_tp``: EP with a model axis, the reference's ``(expert, data,
+    model)`` production layout.  (a) ``moe_gmm`` at one rank of
+    ``(expert 2, model 2)``'s shapes (E 16, d 1024, f 256: C 8, C 80 and
+    a training microbatch's round's C 1280, bf16) and ``moe_gmm_bwd`` at
+    C 1280, against their plain versions and the ``torch.bmm`` chain;
+    then four processes on the one card over gloo at ``(expert 2, data 1,
+    model 2)``, full-width granite with ``expert_parallel`` (each rank 16
+    experts × 256 d_ff columns, 8 heads, half the vocab; the EP round
+    inside the tensor-parallel region): (d) fp32, 2 layers, capacity
+    factor E / top_k, 16 teacher-forced decode steps and chunked and
+    whole prefill within 2e-5 of max |ref| of one process's, chunked ==
+    whole 0.0; (b) bf16 AdamW steps (``lc`` and ``afe`` 2 each, one
+    ``lc`` at capacity factor 4; seq 1024, batch 8 in 2 microbatches):
+    losses within 2e-2 of one process's (gradient norms too at ample
+    capacity), launches and each axis's collectives exact, step ms and
+    peak memory per rank; (c) the closed batch in bf16: 16/16 finished,
+    the 4 ranks' tokens identical, ``moe_gmm`` counted per shape,
+    collectives exact, step p50 / p99, tokens/s, peak memory per rank,
+    the share of tokens equal to one process's and the margins where
+    they first differ.
 
 Each main-path run (each forward of phases 4, 7, 9, 10, 15 and 16; the
 serve CLI and the batcher run of phase 5 for ``moe_gmm``; the four steps
 of phases 13, 14 and 15 for the backward kernels, each EP round, each
 rank's every step in phases 19 and 20, and phase 20's EP round under
-autograd, each batcher run of phase 21) zeroes the launch counters
+autograd, each batcher run of phase 21, each rank's every step and its
+batcher run in phase 22) zeroes the launch counters
 just before it and reads them just after; the ``kernels`` line takes ``moe_gmm``'s
 count from the serve CLI, ``ssm_scan``'s from the fp32 falcon-mamba-7b
 forward, ``flash_attention``'s from the bf16 phi3-mini forward,
@@ -205,7 +231,11 @@ from phase 15) and ``ssm_scan_bwd``'s from phase 14; four more
 entries give ``moe_gmm``'s and ``moe_gmm_bwd``'s launches on phase 20's
 EP path (per round in (a), per step of expert rank 0 in (b)), and two
 more ``moe_gmm``'s at one model rank of 2's serving shapes, with model
-rank 0's launches in phase 21 (c).  Each phase's wall time is printed
+rank 0's launches in phase 21 (c); four more give ``moe_gmm`` and
+``moe_gmm_bwd`` at one rank of ``(expert 2, model 2)``'s training shape
+(rank 0's launches per ``lc`` step in phase 22 (b)) and ``moe_gmm`` at
+its two serving shapes (rank 0's launches in phase 22 (c)).  Each
+phase's wall time is printed
 after it.  Launches made to compare a kernel with its plain
 version are not counted.  Every phase prints JSON lines and raises on
 failure.  The second-to-last line is the ``kernels`` JSON and the last
@@ -1564,8 +1594,9 @@ def expected_collectives(cfg, policy: str, microbatches: int,
 
 
 def phase_dist_policies(torch, cfg, card: str, steps: int = 2) -> dict:
-    """``cfg`` at full width (bf16), seq 1024, global batch 8 in 2
-    microbatches: ``steps`` AdamW steps of each policy (``unopt``, ``lc``,
+    """``cfg`` at full width (bf16; :func:`main` passes 4 of granite's
+    layers), seq 1024, global batch 8 in 2 microbatches: ``steps`` AdamW
+    steps of each policy (``unopt``, ``lc``,
     ``afe``, ``afe_bucket``) on a ``make_test_mesh(data=1, model=1)``
     NCCL mesh, and the same steps without a mesh from the same seed,
     under deterministic algorithms (the embedding gradient's scatter-add
@@ -1841,7 +1872,8 @@ def tp_rank_run(torch, rank: int, plan: dict) -> dict:
 def ep_rank_run(torch, rank: int, plan: dict) -> dict:
     """One expert rank of :func:`phase_ep_train` (b): for each case
     ``(policy, capacity factor or None for the config's, steps)``,
-    full-width bf16 steps on an ``(expert 2, data 1, model 1)`` mesh,
+    full-width bf16 steps of ``plan["layers"]`` layers on an ``(expert 2,
+    data 1, model 1)`` mesh,
     with the rank's peak memory; the results in the cases' order."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_test_mesh
@@ -1850,7 +1882,8 @@ def ep_rank_run(torch, rank: int, plan: dict) -> dict:
     mesh = make_test_mesh(data=1, model=1, expert=2, device_type="cpu")
     arch, S, B, mb = plan["bf16"]
     base = dataclasses.replace(get_config(arch, smoke=plan["smoke"]),
-                               expert_parallel=True)
+                               expert_parallel=True,
+                               n_layers=plan["layers"])
     out = []
     for policy, cf, steps in plan["cases"]:
         cfg = base if cf is None else \
@@ -1872,11 +1905,13 @@ def ep_rank_run(torch, rank: int, plan: dict) -> dict:
 
 
 def tp_rank(rank: int, store: str, plan: dict, q) -> None:
-    """A spawned rank: a gloo process group (NCCL refuses two ranks on one
-    device; gloo stages CUDA tensors through host memory), then
-    :func:`tp_rank_run` (:func:`ep_rank_run` for a plan of kind ``"ep"``,
-    :func:`tp_serve_rank_run` for one of kind ``"serve"``); the result or
-    the traceback goes on ``q``."""
+    """A spawned rank: a gloo process group of ``plan["world"]`` ranks
+    (default 2; NCCL refuses two ranks on one device; gloo stages CUDA
+    tensors through host memory), then :func:`tp_rank_run`
+    (:func:`ep_rank_run` for a plan of kind ``"ep"``,
+    :func:`tp_serve_rank_run` for one of kind ``"serve"``,
+    :func:`ep_tp_rank_run` for one of kind ``"ep_tp"``); the result or the
+    traceback goes on ``q``."""
     import traceback
 
     sys.path.insert(0, str(SRC))
@@ -1889,9 +1924,9 @@ def tp_rank(rank: int, store: str, plan: dict, q) -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         dist.init_process_group("gloo", init_method=f"file://{store}",
-                                rank=rank, world_size=2)
-        run = {"ep": ep_rank_run, "serve": tp_serve_rank_run}.get(
-            plan.get("kind"), tp_rank_run)
+                                rank=rank, world_size=plan.get("world", 2))
+        run = {"ep": ep_rank_run, "serve": tp_serve_rank_run,
+               "ep_tp": ep_tp_rank_run}.get(plan.get("kind"), tp_rank_run)
         q.put((rank, run(torch, rank, plan)))
     except BaseException:
         q.put((rank, {"error": traceback.format_exc()}))
@@ -1901,8 +1936,9 @@ def tp_rank(rank: int, store: str, plan: dict, q) -> None:
 
 
 def tp_spawn(plan: dict) -> dict:
-    """Run :func:`tp_rank` in two spawned processes; their results by rank.
-    Raises with the tracebacks if a rank fails; never leaves one running."""
+    """Run :func:`tp_rank` in ``plan["world"]`` (default 2) spawned
+    processes; their results by rank.  Raises with the tracebacks if a
+    rank fails; never leaves one running."""
     import multiprocessing as mp
     import shutil
 
@@ -1911,13 +1947,15 @@ def tp_spawn(plan: dict) -> dict:
     store.mkdir(parents=True)
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
+    world = plan.get("world", 2)
     procs = [ctx.Process(target=tp_rank, args=(r, str(store / "store"),
-                                               plan, q)) for r in range(2)]
+                                               plan, q))
+             for r in range(world)]
     for pr in procs:
         pr.start()
     got = {}
     try:
-        while len(got) < 2:
+        while len(got) < world:
             r, res = q.get(timeout=600)
             got[r] = res
             if "error" in res:
@@ -2043,7 +2081,7 @@ def ep_expected_collectives(cfg, microbatches: int,
 
 
 def phase_ep_train(torch, cfg, card: str, T: int = 4096,
-                   with_ranks: bool = True) -> list:
+                   with_ranks: bool = True, layers: int = 4) -> list:
     """Expert parallelism under autograd.
 
     (a) One NCCL rank, an expert axis of 1: the EP round
@@ -2060,8 +2098,9 @@ def phase_ep_train(torch, cfg, card: str, T: int = 4096,
     mean of 5 after 2 warm-up).
 
     (b) Two processes on the one card over gloo, an ``(expert 2, data 1,
-    model 1)`` mesh, ``cfg`` at full width in bf16 with
-    ``expert_parallel``, seq 1024, global batch 8 in 2 microbatches,
+    model 1)`` mesh, ``cfg`` at full width and ``layers`` of its layers
+    (phase 22 runs the expert axis at full depth beside a model axis) in bf16 with ``expert_parallel``, seq 1024, global batch 8 in 2
+    microbatches,
     policies ``lc`` and ``afe``, 2 AdamW steps each at the config's
     capacity (C 1280), and one ``lc`` step at capacity factor E / top_k
     (ample, C 4096): every step's loss within 2e-2 relative of the
@@ -2151,7 +2190,7 @@ def phase_ep_train(torch, cfg, card: str, T: int = 4096,
     if not with_ranks:
         return rows
 
-    ep_cfg = dataclasses.replace(cfg, expert_parallel=True)
+    ep_cfg = dataclasses.replace(cfg, expert_parallel=True, n_layers=layers)
     ample = cfg.n_experts / cfg.top_k
     one = {}
     for cf, steps in ((None, 2), (ample, 1)):
@@ -2167,11 +2206,11 @@ def phase_ep_train(torch, cfg, card: str, T: int = 4096,
         torch.cuda.empty_cache()
     plan = {"kind": "ep", "dev": "cuda", "smoke": False,
             "cases": (("lc", None, 2), ("afe", None, 2), ("lc", ample, 1)),
-            "bf16": (cfg.name, 1024, 8, 2)}
+            "bf16": (cfg.name, 1024, 8, 2), "layers": layers}
     got = tp_spawn(plan)
     local = dataclasses.replace(ep_cfg, n_experts=cfg.n_experts // 2)
     expect = expected_launches(local, 1024, 2)
-    ep_expect = ep_expected_collectives(cfg, 2)
+    ep_expect = ep_expected_collectives(ep_cfg, 2)
     bad = []
     for i, (policy, cf, steps) in enumerate(plan["cases"]):
         data_expect = expected_collectives(cfg, policy, 2,
@@ -2180,7 +2219,7 @@ def phase_ep_train(torch, cfg, card: str, T: int = 4096,
         for r in range(2):
             b = got[r][i]
             row = {"phase": "ep_train", "check": "bf16", "rank": r,
-                   "card": card, "arch": cfg.name,
+                   "card": card, "arch": cfg.name, "layers": layers,
                    "mesh": "expert 2, data 1, model 1", "backend": "gloo",
                    "policy": policy, "seq_len": 1024, "global_batch": 8,
                    "microbatches": 2, "capacity_factor":
@@ -2227,13 +2266,14 @@ def phase_ep_train(torch, cfg, card: str, T: int = 4096,
 # ---------------------------------------------------------------------------
 
 
-def teacher_forced_decode(torch, cfg, steps: int, *, rank: int = 0,
-                          mesh=None, tp=None):
+def teacher_forced_decode(torch, cfg, steps: int, *, mesh=None, cut=None,
+                          tp=None, ep=None):
     """``cfg``'s weights and 2 rows of ``steps`` tokens from ``SEED``, the
     tokens fed one by one through ``decode_step``; each step's logits on
-    the host, ``(steps, 2, V)``.  On ``mesh`` (a ``(data 1, model 2)``
-    one) the weights and the cache are model rank ``rank``'s and ``V``
-    its vocab shard."""
+    the host, ``(steps, 2, V)``.  On ``mesh`` the weights are this rank's
+    compute shards (``cut``: the ``(rank, size, axis)`` of
+    ``tp_local_params``), the cache is the rank's and ``V`` its vocab
+    shard; ``tp`` / ``ep`` the model and expert axes' groups."""
     from repro_torch.distributed.sharding import tp_local_params
     from repro_torch.models import model as TM
 
@@ -2243,14 +2283,14 @@ def teacher_forced_decode(torch, cfg, steps: int, *, rank: int = 0,
     toks = torch.randint(0, cfg.vocab, (2, steps), generator=gen,
                          device=dev)
     if mesh is not None:
-        params = tp_local_params(params, cfg, rank, 2)
+        params = tp_local_params(params, cfg, *cut)
     cache = TM.init_cache(cfg, 2, steps, device=dev, mesh=mesh)
     out = []
     with torch.no_grad():
         for t in range(steps):
             lg, cache = TM.decode_step(params, cfg, cache, {
                 "tokens": toks[:, t:t + 1],
-                "cache_index": torch.tensor(t, device=dev)}, tp=tp)
+                "cache_index": torch.tensor(t, device=dev)}, tp=tp, ep=ep)
             out.append(lg.float().cpu())
     return torch.stack(out)
 
@@ -2264,14 +2304,15 @@ def prefill_config(cfg):
                                cfg.top_k)
 
 
-def chunked_prefill(torch, cfg, *, rank: int = 0, mesh=None,
-                    tp=None) -> dict:
+def chunked_prefill(torch, cfg, *, mesh=None, cut=None, tp=None,
+                    ep=None) -> dict:
     """``cfg`` from ``SEED`` under deterministic algorithms: a 48-token
     prompt (row 0; row 1 inert) prefilled through a ``(2, 64)`` buffer
     whole, in 32 + 16 and in 3 × 16, then one decode step.  ``delta``:
     the largest |Δ| of any chunking's cache or logits against the whole
     prefill's; ``cache`` / ``logits``: the whole prefill's, as numpy (on
-    ``mesh`` this rank's cache and vocab shard)."""
+    ``mesh`` this rank's cache and vocab shard; ``cut``, ``tp`` and
+    ``ep`` as in :func:`teacher_forced_decode`)."""
     from repro_torch.device import parity_mode
     from repro_torch.distributed.sharding import tp_local_params
     from repro_torch.models import model as TM
@@ -2285,7 +2326,7 @@ def chunked_prefill(torch, cfg, *, rank: int = 0, mesh=None,
         prompt = torch.randint(0, cfg.vocab, (49,), generator=gen,
                                device=dev)
         if mesh is not None:
-            params = tp_local_params(params, cfg, rank, 2)
+            params = tp_local_params(params, cfg, *cut)
         runs = []
         with torch.no_grad():
             for sizes in ((48,), (32, 16), (16, 16, 16)):
@@ -2298,12 +2339,13 @@ def chunked_prefill(torch, cfg, *, rank: int = 0, mesh=None,
                     TM.prefill_step(params, cfg, cache, {
                         "tokens": buf,
                         "cache_index": torch.tensor([pos, 0], device=dev),
-                        "count": torch.tensor([n, 0], device=dev)}, tp=tp)
+                        "count": torch.tensor([n, 0], device=dev)},
+                        tp=tp, ep=ep)
                     pos += n
                 lg, _ = TM.decode_step(params, cfg, cache, {
                     "tokens": prompt[48:].expand(2, 1),
                     "cache_index": torch.tensor([48, 0], device=dev)},
-                    tp=tp)
+                    tp=tp, ep=ep)
                 runs.append((cache, lg))
     finally:
         parity_mode(deterministic=False)
@@ -2339,11 +2381,12 @@ def tp_serve_rank_run(torch, rank: int, plan: dict) -> dict:
     for arch, steps in plan["decode"]:
         c = dataclasses.replace(get_config(arch), dtype="float32")
         out["decode"].append(teacher_forced_decode(
-            torch, c, steps, rank=rank, mesh=mesh, tp=tpc).numpy())
+            torch, c, steps, mesh=mesh, cut=(rank, 2, "model"),
+            tp=tpc).numpy())
     out["seconds"]["decode"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     out["prefill"] = chunked_prefill(torch, prefill_config(get_config(
-        plan["prefill"])), rank=rank, mesh=mesh, tp=tpc)
+        plan["prefill"])), mesh=mesh, cut=(rank, 2, "model"), tp=tpc)
     out["seconds"]["prefill"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     c = get_config(plan["serve"])
@@ -2638,7 +2681,329 @@ def phase_tp_serve(torch, cfg, hymba, card: str, one: dict) -> dict:
             bad.append(f"serve rank {r}: moe_gmm shapes {shapes}")
     if bad:
         raise AssertionError(f"tp_serve: {bad}")
-    return {"rows": rows, "serve": got[0]["serve"]}
+    return {"rows": rows, "serve": got[0]["serve"], "one_rank": one_rank}
+
+
+# ---------------------------------------------------------------------------
+# Phase 22: EP with a model axis, the reference's production layout
+# ---------------------------------------------------------------------------
+
+EP_TP_MESH = "expert 2, data 1, model 2"
+
+
+def ep_tp_expected(cfg, microbatches: int) -> dict:
+    """Per train step under ``remat`` on ``(expert 2, data 1, model 2)``:
+    the model axis's all-reduces (per microbatch the embedding's, the
+    cross entropy's three and the head input's gradient; per layer
+    attention's forward, recompute and input-gradient reduces and the EP
+    round's lane reduce, its recompute and its packed tokens' gradient;
+    the norm's) and the expert axis's collectives, as without a model
+    axis (:func:`ep_expected_collectives`)."""
+    zero = dict.fromkeys(("all_reduce", "reduce_scatter", "all_gather",
+                          "all_to_all", "send_recv"), 0)
+    return {"tp": dict(zero, all_reduce=microbatches *
+                       (5 + 6 * cfg.n_layers) + 1),
+            "ep": ep_expected_collectives(cfg, microbatches)}
+
+
+def ep_tp_rank_run(torch, rank: int, plan: dict) -> dict:
+    """One rank of :func:`phase_ep_tp` on an ``(expert 2, data 1, model
+    2)`` mesh, with its expert rank's ``E/S`` experts × ``d_ff/m`` and its
+    model rank's heads and vocab rows: (d) fp32 teacher-forced decode and
+    chunked against whole prefill (``prefill_config``: 2 layers, capacity
+    factor E / top_k), (b) the bf16 train steps of each case ``(policy,
+    capacity factor or None for the config's, steps)``, (c) the closed
+    batch through the ``ContinuousBatcher``."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.comm import Collectives
+    from repro_torch.distributed.sharding import (
+        tp_local_config, tp_local_params)
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import model as TM
+    from repro_torch.serve import batcher as SB
+
+    dev = "cuda"
+    mesh = make_test_mesh(data=1, model=2, expert=2, device_type="cpu")
+    ep = Collectives(mesh.get_group("expert"))
+    tp = Collectives(mesh.get_group("model"))
+    cut = ((ep.rank, tp.rank), (2, 2), ("expert", "model"))
+    base = dataclasses.replace(get_config(plan["arch"]), expert_parallel=True)
+    out = {"coords": [ep.rank, tp.rank], "seconds": {}}
+    t0 = time.perf_counter()
+    f32 = prefill_config(base)
+    out["decode"] = teacher_forced_decode(
+        torch, f32, 16, mesh=mesh, cut=cut, tp=tp, ep=ep).numpy()
+    out["prefill"] = chunked_prefill(torch, f32, mesh=mesh, cut=cut, tp=tp,
+                                     ep=ep)
+    out["seconds"]["fp32"] = time.perf_counter() - t0
+    S, B, mb = plan["bf16"]
+    out["train"] = []
+    t0 = time.perf_counter()
+    for policy, cf, steps in plan["cases"]:
+        cfg = base if cf is None else \
+            dataclasses.replace(base, moe_capacity_factor=cf)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step, p, o, batch = tp_step_setup(
+            torch, cfg, mesh, seq_len=S, global_batch=B, microbatches=mb,
+            lr=1e-4, dev=dev, policy=policy)
+        res = tp_steps(torch, step, p, o, batch, steps, dev)
+        res["local_w1"] = list(p["layers"]["moe"]["w1"].shape)
+        res["max_memory_allocated_gb"] = \
+            torch.cuda.max_memory_allocated() / 1e9
+        out["train"].append(res)
+        del step, p, o, batch
+        gc.collect()
+    out["seconds"]["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params = tp_local_params(TM.init_params(base, torch.Generator(
+        device=dev).manual_seed(SEED), device=dev), base, *cut)
+    reqs = closed_batch(base)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    b = SB.ContinuousBatcher(base, params, n_slots=8, cache_len=512,
+                             policy="dlbc", prefill_chunk=32, device=dev,
+                             mesh=mesh)
+    step_ms = []
+    t1 = time.perf_counter()
+    counts = counted_serve(torch, tp_local_config(base, 2, expert=2),
+                           lambda: step_ms.extend(drive_batcher(
+                               torch, b, reqs)))
+    out["serve"] = {
+        "tokens": [r.tokens[len(r.prompt):] for r in reqs],
+        "finished": sum(r.done_step is not None for r in reqs),
+        "wall_s": time.perf_counter() - t1, "step_ms": step_ms,
+        "tp_collectives": b.tp.counts, "dp_collectives": b.dp.counts,
+        "ep_collectives": b.ep.counts,
+        "local_w1": list(params["layers"]["moe"]["w1"].shape),
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        **counts}
+    out["seconds"]["serve"] = time.perf_counter() - t0
+    return out
+
+
+def phase_ep_tp(torch, cfg, card: str, one_rank: dict) -> dict:
+    """EP with a model axis (the reference's ``(expert, data, model)``
+    production layout): four processes on the one card over gloo at
+    ``(expert 2, data 1, model 2)`` (:func:`tp_spawn`, a plan of kind
+    ``"ep_tp"``), ``cfg`` (granite) at full width and depth with
+    ``expert_parallel``: each rank computes with its expert rank's 16
+    experts × 256 of their 512 d_ff columns, and its model rank's 8 heads
+    (4 KV) and half of the vocab; the EP round runs inside the
+    tensor-parallel region.  ``one_rank``: :func:`tp_serve_one_rank`'s
+    row (the one-process closed batch, with its top logits).
+
+    (d) fp32 (TF32 off), 2 layers, capacity factor E / top_k: 16
+    teacher-forced decode steps, each step's logits gathered over the
+    vocab shards within 2e-5 of max |ref| of one process's (run here
+    first, same seeds), the expert ranks of each model rank alike; the
+    chunked prefill equal to whole prefill on each rank (max |Δ| 0.0) and
+    the whole prefill's cache and next logits, put together over the
+    model ranks, within 2e-5 of max |ref| of one process's.
+    (b) bf16, seq 1024, global batch 8 in 2 microbatches (C 1280 per
+    round at the config's capacity): 2 AdamW steps each of ``lc`` and
+    ``afe``, and one ``lc`` step at capacity factor E / top_k (C 4096):
+    every step's loss within 2e-2 relative of the one-process steps (and
+    at ample capacity the gradient norm), no skipped step, each rank's
+    launches exactly ``expected_launches`` of the rank-local config, the
+    data, model and expert axes' collectives exact; per-rank step ms and
+    peak memory.
+    (c) bf16, the closed batch (16 requests, 8 slots): 16/16 finished,
+    the 4 ranks' tokens identical, ``moe_gmm`` once per layer per model
+    launch at one ``(E, C)`` per kind of launch, each axis's collectives
+    exact; step p50 / p99, tokens/s and peak memory per rank, the share
+    of tokens equal to ``one_rank``'s and the logit margins where each
+    request first differs (:func:`first_difference_margins`).
+
+    Step times include gloo's host staging of every collective (nothing
+    here measures NVLink)."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.distributed.sharding import (
+        tp_assemble_cache, tp_local_config)
+    from repro_torch.train.train_step import StepConfig
+    from repro_torch.tree import tree_leaves, tree_map
+
+    ep_cfg = dataclasses.replace(cfg, expert_parallel=True)
+    ample = cfg.n_experts / cfg.top_k
+    S, B, mb = 1024, 8, 2
+    cases = (("lc", None, 2), ("afe", None, 2), ("lc", ample, 1))
+    t0 = time.perf_counter()
+    f32 = prefill_config(ep_cfg)
+    ref_dec = teacher_forced_decode(torch, f32, 16)
+    ref_pre = chunked_prefill(torch, f32)
+    one = {}
+    for cf, steps in ((None, 2), (ample, 1)):
+        torch.cuda.reset_peak_memory_stats()
+        c = ep_cfg if cf is None else \
+            dataclasses.replace(ep_cfg, moe_capacity_factor=cf)
+        one[cf] = tp_steps(torch, *tp_step_setup(
+            torch, c, None, seq_len=S, global_batch=B, microbatches=mb,
+            lr=1e-4), steps)
+        one[cf]["max_memory_allocated_gb"] = \
+            torch.cuda.max_memory_allocated() / 1e9
+        gc.collect()
+        torch.cuda.empty_cache()
+    seconds = {"one_process": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    got = tp_spawn({"kind": "ep_tp", "world": 4, "dev": "cuda",
+                    "arch": cfg.name, "cases": cases, "bf16": (S, B, mb)})
+    seconds["ranks"] = time.perf_counter() - t0
+    emit({"phase": "ep_tp", "check": "seconds", **seconds,
+          "rank_seconds": [got[r]["seconds"] for r in range(4)]})
+    at = {tuple(got[r]["coords"]): got[r] for r in range(4)}
+    if sorted(at) != [(0, 0), (0, 1), (1, 0), (1, 1)]:
+        raise AssertionError(f"ep_tp: rank coordinates {sorted(at)}")
+    rows, bad = [], []
+    base = {"phase": "ep_tp", "card": card, "arch": cfg.name,
+            "mesh": EP_TP_MESH, "backend": "gloo"}
+
+    # (d) fp32 decode and prefill against one process
+    whole = torch.cat([torch.from_numpy(at[(0, r)]["decode"])
+                       for r in range(2)], -1)
+    err = [float((whole[t] - ref_dec[t]).abs().max()) /
+           float(ref_dec[t].abs().max()) for t in range(ref_dec.shape[0])]
+    alike = all(np.array_equal(at[(0, r)]["decode"], at[(1, r)]["decode"])
+                for r in range(2))
+    row = dict(base, check="fp32_decode", layers=f32.n_layers,
+               capacity_factor=f32.moe_capacity_factor,
+               steps=ref_dec.shape[0], shape=list(whole.shape),
+               max_err_over_max_per_step=err,
+               expert_ranks_alike=alike,
+               argmax_equal=bool(torch.equal(whole.argmax(-1),
+                                             ref_dec.argmax(-1))))
+    emit(row)
+    rows.append(row)
+    if whole.shape != ref_dec.shape or max(err) > 2e-5 or not alike:
+        bad.append(f"fp32 decode: {max(err)}, expert ranks alike {alike}")
+    delta = [got[r]["prefill"]["delta"] for r in range(4)]
+    pieces = [at[(0, r)]["prefill"] for r in range(2)]
+    whole = tree_leaves(tp_assemble_cache(
+        [[tree_map(torch.from_numpy, p["cache"]) for p in pieces]],
+        f32)) + [torch.cat([torch.from_numpy(p["logits"])
+                            for p in pieces], -1)]
+    ref = tree_leaves(tree_map(torch.from_numpy, ref_pre["cache"])) + [
+        torch.from_numpy(ref_pre["logits"])]
+    err = [float((a - c).abs().max()) / float(c.abs().max())
+           if a.shape == c.shape else float("inf")
+           for a, c in zip(whole, ref)]
+    row = dict(base, check="chunked_prefill", dtype="float32",
+               layers=f32.n_layers,
+               chunkings=[[48], [32, 16], [16, 16, 16]],
+               chunked_vs_whole_max_abs_diff=delta,
+               one_process_chunked_vs_whole_max_abs_diff=ref_pre["delta"],
+               whole_vs_one_process_max_err_over_max_per_leaf=err)
+    emit(row)
+    rows.append(row)
+    if any(d != 0.0 for d in delta + [ref_pre["delta"]]):
+        bad.append(f"chunked prefill != whole: ranks {delta}, one process "
+                   f"{ref_pre['delta']}")
+    if len(whole) != len(ref) or max(err) > 2e-5:
+        bad.append(f"prefill on the ranks vs one process: {err}")
+
+    # (b) bf16 train steps
+    local = tp_local_config(ep_cfg, 2, expert=2)
+    local_w1 = [cfg.n_layers, cfg.n_experts // 2, cfg.d_model,
+                cfg.d_ff // 2]
+    expect = expected_launches(local, S, mb)
+    axes = ep_tp_expected(cfg, mb)
+    for i, (policy, cf, steps) in enumerate(cases):
+        data_expect = expected_collectives(cfg, policy, mb,
+                                           StepConfig().n_buckets)
+        ref = one[cf]
+        for r in range(4):
+            b = got[r]["train"][i]
+            row = dict(base, check="bf16_train", rank=r,
+                       coords=got[r]["coords"], policy=policy, seq_len=S,
+                       global_batch=B, microbatches=mb,
+                       capacity_factor=cf or cfg.moe_capacity_factor,
+                       **b, one_process_losses=ref["losses"],
+                       one_process_grad_norms=ref["grad_norms"],
+                       one_process_step_ms=ref["step_ms"],
+                       one_process_max_memory_allocated_gb=ref[
+                           "max_memory_allocated_gb"],
+                       expected_launches_per_step=expect,
+                       expected_tp_collectives_per_step=axes["tp"],
+                       expected_ep_collectives_per_step=axes["ep"],
+                       expected_collectives_per_step=data_expect)
+            emit(row)
+            rows.append(row)
+            gated = list(zip(b["losses"], ref["losses"]))
+            if cf is not None:
+                gated += list(zip(b["grad_norms"], ref["grad_norms"]))
+            for x, y in gated:
+                if not math.isfinite(x) or abs(x - y) > 2e-2 * abs(y):
+                    bad.append(f"{policy} cf {cf} rank {r}: {x} against "
+                               f"{y}")
+            if sum(b["skipped"]) or b["local_w1"] != local_w1 \
+                    or any(n != expect for n in b["launches"]) \
+                    or any(n != axes["tp"] for n in b["tp_collectives"]) \
+                    or any(n != axes["ep"] for n in b["ep_collectives"]) \
+                    or any(n != data_expect for n in b["collectives"]):
+                bad.append(f"{policy} rank {r}: skipped {b['skipped']}, "
+                           f"w1 {b['local_w1']}, launches {b['launches']}, "
+                           f"collectives {b['collectives']} / "
+                           f"{b['tp_collectives']} / {b['ep_collectives']}")
+
+    # (c) the closed batch
+    per = 1 + 2 * cfg.n_layers
+    zero = dict.fromkeys(("all_reduce", "reduce_scatter", "all_gather",
+                          "all_to_all", "send_recv"), 0)
+    want = one_rank["tokens"]
+    for r in range(4):
+        srv = got[r]["serve"]
+        n_pre, n_dec = srv["prefill_rounds"], srv["decode_steps"]
+        n = n_pre + n_dec
+        gen = sum(len(t) for t in srv["tokens"])
+        agree = sum(a == c for x, y in zip(srv["tokens"], want)
+                    for a, c in zip(x, y))
+        shapes = srv["moe_gmm_shapes"]
+        alike = all(srv["tokens"] == got[k]["serve"]["tokens"]
+                    for k in range(4))
+        row = dict(base, check="serve_bf16", rank=r,
+                   coords=got[r]["coords"], dtype=cfg.dtype,
+                   local_w1=srv["local_w1"], finished=srv["finished"],
+                   steps=len(srv["step_ms"]), generated_tokens=gen,
+                   tokens_per_s=gen / srv["wall_s"],
+                   p50_step_ms=float(np.percentile(srv["step_ms"], 50)),
+                   p99_step_ms=float(np.percentile(srv["step_ms"], 99)),
+                   max_memory_allocated_gb=srv["max_memory_allocated_gb"],
+                   one_process_p50_step_ms=one_rank["p50_step_ms"],
+                   one_process_tokens_per_s=one_rank["tokens_per_s"],
+                   tokens_equal_one_process_share=agree / max(gen, 1),
+                   tokens_equal_other_ranks=alike,
+                   near_ties=first_difference_margins(srv["tokens"],
+                                                      one_rank),
+                   launches=srv["launches"],
+                   moe_gmm_by_call=srv["moe_gmm_by_call"],
+                   moe_gmm_shapes=shapes, prefill_rounds=n_pre,
+                   decode_steps=n_dec,
+                   tp_collectives=srv["tp_collectives"],
+                   dp_collectives=srv["dp_collectives"],
+                   ep_collectives=srv["ep_collectives"])
+        emit(row)
+        rows.append(row)
+        if srv["finished"] != 16 or gen != 16 * 32 or not alike or \
+                srv["local_w1"] != local_w1:
+            bad.append(f"serve rank {r}: {srv['finished']}/16 finished, "
+                       f"{gen} tokens, ranks alike {alike}")
+        if srv["tp_collectives"] != dict(zero, all_reduce=per * n,
+                                         all_gather=n_dec) or \
+                srv["dp_collectives"] != dict(zero, all_gather=n_dec) or \
+                srv["ep_collectives"] != dict(
+                    zero, all_to_all=2 * cfg.n_layers * n,
+                    all_gather=cfg.n_layers * n):
+            bad.append(f"serve rank {r}: collectives")
+        if [len(shapes[k]) for k in ("prefill", "decode")] != [1, 1]:
+            bad.append(f"serve rank {r}: moe_gmm shapes {shapes}")
+    if bad:
+        raise AssertionError(f"ep_tp: {bad}")
+    return {"rows": rows, "train": at[(0, 0)]["train"],
+            "serve": at[(0, 0)]["serve"]}
 
 
 # ---------------------------------------------------------------------------
@@ -2790,14 +3155,20 @@ def main() -> int:
     # distribution at world size 1 on NCCL: the four policies' steps on a
     # mesh bitwise equal to the mesh-free ones, collectives counted; the
     # EP round through moe_gmm against the single-host moe_apply
-    timed(phase_dist_policies, torch, cfg, smi)
+    # (4 of granite's 24 layers: the check is bitwise and per leaf, and
+    # the whole script must stay well inside its time limit)
+    timed(phase_dist_policies, torch, dataclasses.replace(cfg, n_layers=4),
+          smi)
     timed(phase_ep_round, torch, cfg, smi)
     # hymba-1.5b: 2-layer fp32 gradients in two chained scan chunks, then
     # full-width bf16 AdamW steps, seq 1024, 8 microbatches of 1 sequence
     # (without remat, then with it), then 4 microbatches of 2 sequences
+    # (the AdamW steps at 8 of its 32 layers, to keep the whole script
+    # well inside its time limit; train_fit's memory question at all 32)
+    hymba8 = dataclasses.replace(hymba, n_layers=8)
     timed(phase_train_grads, torch, hymba, 256, 128)
-    timed(phase_train, torch, hymba, smi, 4, 1024, 8, 8, False)
-    hymba_train = timed(phase_train, torch, hymba, smi, 4, 1024, 8, 8)
+    timed(phase_train, torch, hymba8, smi, 4, 1024, 8, 8, False)
+    hymba_train = timed(phase_train, torch, hymba8, smi, 4, 1024, 8, 8)
     timed(phase_train_fit, torch, hymba, smi, 4)
     # the encoder-decoder and vision-language families (phases 15-16):
     # flash_attention at their shapes — whisper's encoder (S = T = 1500,
@@ -2868,6 +3239,19 @@ def main() -> int:
     # ranks serving on the one card
     g2_serve = timed(phase_moe_gmm, torch, g2, (("bfloat16", (8, 80)),))
     tp_serve = timed(phase_tp_serve, torch, cfg, hymba, smi, srv)
+    # EP with a model axis (phase 22): (a) moe_gmm and its backward at one
+    # rank of (expert 2, model 2)'s shapes (E 16 experts x 256 of their
+    # d_ff columns: a decode step's C 8, a prefill round's C 80, a
+    # training microbatch's round's C 1280), then four gloo ranks on the
+    # one card training and serving full-width granite on that mesh
+    g22 = dataclasses.replace(tp_local_config(dataclasses.replace(
+        cfg, expert_parallel=True), 2, expert=2),
+        n_experts=cfg.n_experts // 2)
+    ep_tp_moe = timed(phase_moe_gmm, torch, g22,
+                      (("bfloat16", (8, 80, 1280)),))
+    ep_tp_moe_bwd = timed(phase_moe_gmm_bwd, torch, g22,
+                          (("bfloat16", (1280,)),))[0]
+    ep_tp = timed(phase_ep_tp, torch, cfg, smi, tp_serve["one_rank"])
 
     moe_main = next(r for r in moe_rows
                     if r["C"] == 8 and r["dtype"] == "bfloat16")
@@ -2949,7 +3333,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/ssm_scan/ssm_scan.py:72",
          "launches": hymba_train["launches"]["ssm_scan_bwd"],
          "shape": "B=1 L=256 Di=3200 N=16 fp32, carried state (hymba-1.5b "
-                  "training, one launch per layer and 256-token chunk)",
+                  "training at 8 of its 32 layers, one launch per layer "
+                  "and 256-token chunk)",
          "max_abs_err": ssm_bwd_main["max_abs_err"],
          "ms": ssm_bwd_main["kernel_ms"], "plain_ms": ssm_bwd_main["plain_ms"],
          "bound_ms": ssm_bwd_main["bound_ms"],
@@ -2972,7 +3357,8 @@ def main() -> int:
     if ep_rank is not None:
         ep_cases += [(name, src_row, ep_rank["launches"][0][name],
                       "E=16 C=1280 d=1024 f=512 bf16 (expert rank 0 of 2, "
-                      "granite-moe-1b-a400m train step, launches per step)")
+                      "granite-moe-1b-a400m train step at 4 of its 24 "
+                      "layers, launches per step)")
                      for name, src_row in (("moe_gmm", g2_moe),
                                            ("moe_gmm_bwd", g2_moe_bwd))]
     # model rank 0 of 2 serving: its launches at each shape, counted in
@@ -2984,6 +3370,28 @@ def main() -> int:
                   f"this shape in {srv2['decode_steps']} decode steps and "
                   f"{srv2['prefill_rounds']} prefill rounds)")
                  for row in g2_serve]
+    # one rank of (expert 2, model 2): expert rank 0 / model rank 0's
+    # launches per train step (lc, the config's capacity) and in the
+    # closed batch at each serving shape
+    at_c = {r["C"]: r for r in ep_tp_moe}
+    tr, sv = ep_tp["train"][0], ep_tp["serve"]
+    ep_tp_shape = ("E=16 C={} d=1024 f=256 bf16 (expert rank 0, model rank "
+                   "0 of (expert 2, data 1, model 2): {})")
+    ep_cases += [
+        ("moe_gmm", at_c[1280], tr["launches"][0]["moe_gmm"],
+         ep_tp_shape.format(1280, "granite-moe-1b-a400m train step, "
+                                  "launches per step")),
+        ("moe_gmm_bwd", ep_tp_moe_bwd, tr["launches"][0]["moe_gmm_bwd"],
+         ep_tp_shape.format(1280, "granite-moe-1b-a400m train step, "
+                                  "launches per step"))]
+    ep_cases += [("moe_gmm", at_c[C], at_shape(sv["moe_gmm_shapes"],
+                                               at_c[C]),
+                  ep_tp_shape.format(C, f"serving the closed batch over "
+                                        f"gloo; its launches at this shape "
+                                        f"in {sv['decode_steps']} decode "
+                                        f"steps and {sv['prefill_rounds']} "
+                                        f"prefill rounds"))
+                 for C in (8, 80)]
     for name, src_row, n, shape in ep_cases:
         kernels.append({
             "name": name, "route": "cuda",

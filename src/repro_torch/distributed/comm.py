@@ -47,7 +47,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from .sharding import EXPERT_AXIS, expert_axis_size, require_executable
+from .sharding import EXPERT_AXIS, expert_axis_size, ep_takes_experts
 
 KINDS = ("all_reduce", "reduce_scatter", "all_gather", "all_to_all",
          "send_recv")
@@ -131,14 +131,12 @@ def expert_comm(mesh, cfg) -> Optional[Collectives]:
     """A :class:`Collectives` over ``mesh``'s ``"expert"`` axis when
     ``cfg``'s MoE layers take the EP round on it (the config opts into
     ``expert_parallel`` and the axis, larger than 1, divides E), else
-    None.  Raises where the round does not run (a model axis larger than
-    1 beside it: ``require_executable(mesh, "ep")``)."""
-    if mesh is None or not getattr(cfg, "expert_parallel", False):
+    None.  A ``"model"`` axis beside it runs the round inside the
+    tensor-parallel region (:func:`model_comm`); the ``DeviceMesh`` built
+    every axis's group when it was made, so this and :func:`model_comm`
+    create no group and may be called in any order."""
+    if mesh is None or not ep_takes_experts(cfg, expert_axis_size(mesh)):
         return None
-    S = expert_axis_size(mesh)
-    if S <= 1 or cfg.n_experts % S:
-        return None
-    require_executable(mesh, "ep")
     return Collectives(mesh.get_group(EXPERT_AXIS))
 
 

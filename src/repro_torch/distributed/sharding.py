@@ -29,7 +29,11 @@ holds its ``E/S`` experts and their optimizer state
 (:func:`tp_local_params` with ``axis="expert"``: the reference's
 ``(EXPERT, fa, M)`` spec), every other leaf whole; the ``"model"`` axis is Megatron
 tensor parallelism inside the layers (:mod:`repro_torch.distributed.comm`'s
-``copy_to_tp`` / ``reduce_from_tp``).  The specs above are the
+``copy_to_tp`` / ``reduce_from_tp``).  On both (the reference's
+``(expert, data, model)`` production layout, ``axis=("expert",
+"model")``) an expert rank's ``E/S`` experts split their d_ff over the
+model ranks, as the ``(EXPERT, fa, M)`` spec stores them, and the rest is
+as on a model axis alone.  The specs above are the
 reference's *storage* layout and stay as they are; what a model rank
 computes with is its *compute* layout, :func:`tp_local_params`, which
 differs from the specs in three places: mamba's fused ``in_proj`` (a rank
@@ -115,30 +119,12 @@ def _model_size(mesh) -> int:
     return axis_sizes(mesh).get("model", 1)
 
 
-def require_executable(mesh, what: str) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run on
-    ``mesh``: ``what="train"`` (the train step) and ``what="serve"``
-    (decode and prefill steps, hence the batcher) refuse an expert axis
-    larger than 1 together with a model axis larger than 1 (the
-    reference's ``(expert, data, model)`` production layout);
-    ``what="ep"`` (the EP round) refuses a model axis larger than 1
-    (experts split over both axes)."""
-    if mesh is None:
-        return
-    if what in ("train", "serve") and expert_axis_size(mesh) > 1 and \
-            _model_size(mesh) > 1:
-        raise NotImplementedError(
-            ("a train step" if what == "train" else
-             "decode_step / prefill_step") +
-            f" on a mesh with an expert axis of size "
-            f"{expert_axis_size(mesh)} and a 'model' axis of size "
-            f"{_model_size(mesh)} is not ported yet (ROADMAP Queue 1: EP "
-            "with a model axis)")
-    if what == "ep" and _model_size(mesh) > 1:
-        raise NotImplementedError(
-            f"a 'model' mesh axis of size {_model_size(mesh)} under the EP "
-            "round is not ported yet: its experts would split over the "
-            "expert and the model axes")
+def ep_takes_experts(cfg, S: int) -> bool:
+    """Whether an expert axis of ``S`` ranks takes ``cfg``'s experts (E
+    over ``"expert"``, the EP round): the config opts into
+    ``expert_parallel`` and ``S``, larger than 1, divides E."""
+    return bool(getattr(cfg, "expert_parallel", False)) and S > 1 and \
+        cfg.n_experts > 0 and cfg.n_experts % S == 0
 
 
 def shard_act(x):
@@ -391,17 +377,20 @@ def attn_split(cfg, m: int) -> bool:
     return H % m == 0 and (KV % m == 0 or m % KV == 0)
 
 
-def tp_local_config(cfg, m: int):
+def tp_local_config(cfg, m: int, expert: int = 0):
     """The config whose shapes one of ``m`` model ranks computes with: the
     query and KV heads over ``m`` where they split (else whole; one KV
-    head where ``KV < m``), E over ``m`` where it divides (else d_ff), the
-    MLP's d_ff, d_inner.  The vocab, the router and the norms keep their
-    whole widths."""
+    head where ``KV < m``), the experts' d_ff where an expert axis of
+    ``expert`` ranks takes E (:func:`ep_takes_experts`: E stays whole,
+    since routing is over all E), else E over ``m`` where it divides (else
+    d_ff), the MLP's d_ff, d_inner.  The vocab, the router and the norms
+    keep their whole widths."""
     rep = {}
     if cfg.n_heads and attn_split(cfg, m):
         rep.update(n_heads=cfg.n_heads // m, d_head=cfg.head_dim,
                    n_kv_heads=max(1, cfg.n_kv_heads // m))
-    if cfg.n_experts and cfg.n_experts % m == 0:
+    if cfg.n_experts and cfg.n_experts % m == 0 and \
+            not ep_takes_experts(cfg, expert):
         rep["n_experts"] = cfg.n_experts // m
     elif cfg.d_ff:
         rep["d_ff"] = cfg.d_ff // m
@@ -410,13 +399,15 @@ def tp_local_config(cfg, m: int):
     return replace(cfg, **rep)
 
 
-def _tp_rule(path: str, cfg, m: int) -> tuple:
+def _tp_rule(path: str, cfg, m: int, S: int = 0) -> tuple:
     """How one leaf (``path``: '/'-joined keys) lies over ``m`` model
     ranks, on its trailing dims (leading stacked-layer dims are never
     split): ``("rep",)`` whole on every rank; ``("split", dim, groups)``
     ``dim`` read as ``(groups, m, n / (groups·m))`` and rank ``r`` holding
     ``[:, r]``; ``("kv", dim)`` ``dim`` read as ``(KV, head_dim)`` and rank
-    ``r`` holding head ``r // (m / KV)``."""
+    ``r`` holding head ``r // (m / KV)``.  ``S``: the size of an expert
+    axis beside the model axis (0 without one); where it takes E the
+    experts split their d_ff over the model ranks."""
     keys = path.strip("/").split("/")
     leaf, parent = keys[-1], keys[-2] if len(keys) > 1 else ""
     if leaf == "embed":
@@ -426,7 +417,7 @@ def _tp_rule(path: str, cfg, m: int) -> tuple:
     if "moe" in keys:
         if leaf == "router":
             return ("rep",)
-        if cfg.n_experts % m == 0:
+        if cfg.n_experts % m == 0 and not ep_takes_experts(cfg, S):
             return ("split", -3, 1)                 # E over model
         return ("split", -2 if leaf == "w2" else -1, 1)   # d_ff over model
     if "ssm" in keys:
@@ -457,22 +448,42 @@ def _ep_rule(path: str, cfg, S: int) -> tuple:
     rank's tokens' share) until summed over the ranks; every other leaf
     ``("rep",)``, whole and computed alike on every rank."""
     keys = path.strip("/").split("/")
-    if "moe" not in keys or not getattr(cfg, "expert_parallel", False) \
-            or S <= 1 or cfg.n_experts % S:
+    if "moe" not in keys or not ep_takes_experts(cfg, S):
         return ("rep",)
     return ("sum",) if keys[-1] == "router" else ("split", -3, 1)
 
 
-def _rule(path: str, cfg, m: int, axis: str) -> tuple:
-    return _tp_rule(path, cfg, m) if axis == "model" else \
+def _check_two_axes(axis) -> None:
+    if tuple(axis) != (EXPERT_AXIS, "model"):
+        raise ValueError(f"a two-axis cut is ('expert', 'model'), not "
+                         f"{axis!r}")
+
+
+def _axes(rank, size, axis) -> tuple:
+    """A cut as ``((axis, rank, size, S), ...)`` in the order it is made:
+    one axis (``axis`` a name, ``rank`` and ``size`` ints) or the two of
+    the production layout (``axis`` ``("expert", "model")``, ``rank`` and
+    ``size`` pairs: E over the expert ranks first, then the model cut of
+    each expert rank's tree).  ``S``: the expert axis's size that the
+    model cut reads (0 where the cut has no expert axis)."""
+    if isinstance(axis, str):
+        return ((axis, rank, size, 0),)
+    _check_two_axes(axis)
+    (s, r), (S, m) = rank, size
+    return (("expert", s, S, 0), ("model", r, m, S))
+
+
+def _rule(path: str, cfg, m: int, axis: str, S: int = 0) -> tuple:
+    return _tp_rule(path, cfg, m, S) if axis == "model" else \
         _ep_rule(path, cfg, m)
 
 
-def _map_rules(tree, cfg, m: int, fn, path="", axis: str = "model"):
+def _map_rules(tree, cfg, m: int, fn, path="", axis: str = "model",
+               S: int = 0):
     if isinstance(tree, dict):
-        return {k: _map_rules(v, cfg, m, fn, f"{path}/{k}", axis)
+        return {k: _map_rules(v, cfg, m, fn, f"{path}/{k}", axis, S)
                 for k, v in tree.items()}
-    return fn(tree, _rule(path, cfg, m, axis))
+    return fn(tree, _rule(path, cfg, m, axis, S))
 
 
 def _cut(t, rule, rank: int, m: int, cfg):
@@ -509,35 +520,63 @@ def _join(pieces, rule, m: int, cfg):
                        d + 1).flatten(d, d + 2)
 
 
-def tp_local_params(params, cfg, rank: int, size: int,
-                    axis: str = "model"):
+def tp_local_params(params, cfg, rank, size, axis="model"):
     """Rank ``rank`` of ``size``'s compute shards of a whole param tree
     over the ``axis`` mesh axis (``"model"``, or ``"expert"``: an EP
-    config's ``E/S`` experts, everything else whole), as contiguous
-    copies (the kernels check 16-byte alignment); the whole tree copied
-    when ``size`` is 1.  Works on meta tensors (shapes only)."""
-    return _map_rules(params, cfg, size,
-                      lambda t, r: _cut(t, r, rank, size, cfg), axis=axis)
+    config's ``E/S`` experts, everything else whole), or over both
+    (``axis=("expert", "model")``, ``rank=(s, r)``, ``size=(S, m)``: the
+    production layout, expert rank ``s``'s ``E/S`` experts with their d_ff
+    over the model ranks, everything else as on a model axis alone), as
+    contiguous copies (the kernels check 16-byte alignment); the whole
+    tree copied when every size is 1.  Works on meta tensors (shapes
+    only)."""
+    for ax, r, n, S in _axes(rank, size, axis):
+        params = _map_rules(params, cfg, n,
+                            lambda t, rule: _cut(t, rule, r, n, cfg),
+                            axis=ax, S=S)
+    return params
 
 
-def tp_assemble(pieces: list, cfg, axis: str = "model"):
-    """The whole tree from every rank's :func:`tp_local_params`
-    (``pieces[r]``: rank ``r``'s tree): the inverse, bit for bit."""
+def _assemble(pieces: list, cfg, axis: str, S: int = 0):
     m = len(pieces)
 
     def walk(nodes, path):
         if isinstance(nodes[0], dict):
             return {k: walk([n[k] for n in nodes], f"{path}/{k}")
                     for k in nodes[0]}
-        return _join(nodes, _rule(path, cfg, m, axis), m, cfg)
+        return _join(nodes, _rule(path, cfg, m, axis, S), m, cfg)
 
     return walk(pieces, "")
 
 
-def tp_gather_params(local, cfg, comm, axis: str = "model"):
+def tp_assemble(pieces: list, cfg, axis="model"):
+    """The whole tree from every rank's :func:`tp_local_params`
+    (``pieces[r]``: rank ``r``'s tree; over ``("expert", "model")``
+    ``pieces[s][r]``: expert rank ``s``, model rank ``r``): the inverse,
+    bit for bit."""
+    if isinstance(axis, str):
+        return _assemble(pieces, cfg, axis)
+    _check_two_axes(axis)
+    S = len(pieces)
+    return _assemble([_assemble(row, cfg, "model", S) for row in pieces],
+                     cfg, "expert")
+
+
+def tp_gather_params(local, cfg, comm, axis="model"):
     """The whole tree on every rank from each rank's compute shards
     (``comm``: a :class:`~repro_torch.distributed.comm.Collectives` over
-    the ``axis`` ranks; one all-gather per leaf that is split)."""
+    the ``axis`` ranks, one all-gather per leaf that is split; over
+    ``("expert", "model")`` the pair ``(expert comm, model comm)``, the
+    model axis's pieces joined first)."""
+    if not isinstance(axis, str):
+        _check_two_axes(axis)
+        ep, tp = comm
+        return _gather(_gather(local, cfg, tp, "model", ep.size), cfg, ep,
+                       "expert")
+    return _gather(local, cfg, comm, axis)
+
+
+def _gather(local, cfg, comm, axis: str, S: int = 0):
     m = comm.size
 
     def fn(t, rule):
@@ -546,22 +585,37 @@ def tp_gather_params(local, cfg, comm, axis: str = "model"):
         return _join(list(comm.all_gather(t.detach()[None]).unbind(0)),
                      rule, m, cfg)
 
-    return _map_rules(local, cfg, m, fn, axis=axis)
+    return _map_rules(local, cfg, m, fn, axis=axis, S=S)
 
 
-def tp_owned(params, cfg, rank: int, size: int, axis: str = "model"):
+def tp_owned(params, cfg, rank, size, axis="model"):
     """Per leaf, whether rank ``rank``'s copy counts once in a sum over
     the ``axis`` ranks (the gradient norm): every rank's piece of a split
     leaf, rank 0's copy of a replicated one, the first holder's of a KV
-    head that several ranks hold."""
-    def fn(_, rule):
-        if rule[0] in ("rep", "sum"):
-            return rank == 0
-        if rule[0] == "kv":
-            return rank % (size // cfg.n_kv_heads) == 0
-        return True
+    head that several ranks hold.  Over ``("expert", "model")`` (``rank``
+    and ``size`` pairs, as in :func:`tp_local_params`) a copy counts where
+    it counts on both axes, so that every element counts once over the
+    ``S·m`` ranks."""
+    def owned(ax, r, n, S):
+        def fn(_, rule):
+            if rule[0] in ("rep", "sum"):
+                return r == 0
+            if rule[0] == "kv":
+                return r % (n // cfg.n_kv_heads) == 0
+            return True
 
-    return _map_rules(params, cfg, size, fn, axis=axis)
+        return _map_rules(params, cfg, n, fn, axis=ax, S=S)
+
+    flags = [owned(*a) for a in _axes(rank, size, axis)]
+    if len(flags) == 1:
+        return flags[0]
+
+    def both(a, b):
+        if isinstance(a, dict):
+            return {k: both(a[k], b[k]) for k in a}
+        return a and b
+
+    return both(*flags)
 
 
 def ep_summed(params, cfg, size: int):

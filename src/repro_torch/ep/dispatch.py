@@ -33,6 +33,16 @@ output gather's backward issues nothing) and, on the card, each shard's
 expert FFN goes through ``moe_gmm``'s autograd function, so the backward
 launches ``moe_gmm_bwd`` once per shard and round.
 
+On the reference's ``(expert, data, model)`` production layout the
+model ranks of one expert rank hold the same tokens and the same
+replicated router, so they pack identical lanes, and each line of expert
+ranks (one data and one model rank) runs its own exchanges.  The
+reference gathers each expert rank's experts whole into its
+``shard_map``; here each model rank computes with its ``d_ff/m`` slice
+of them (the storage layout is the compute layout), and the lane
+results are summed over the model ranks before the return exchange
+(``tp=``).
+
 AFE is the synchronization story: the whole round is one bulk step with
 a single logical barrier.  :func:`ep_round` runs each round under a DCAFE
 :class:`~repro_torch.sched.executors.FinishScope`, so telemetry shows
@@ -50,9 +60,9 @@ from typing import Optional
 import torch
 
 from ..distributed.comm import (
-    Collectives, gather_from_ep, mesh_group, slice_to_ep,
+    Collectives, copy_to_tp, gather_from_ep, mesh_group, reduce_from_tp,
+    slice_to_ep,
 )
-from ..distributed.sharding import require_executable
 from ..kernels.moe_dispatch.ops import (
     combine_tokens, dispatch_tokens, expert_ffn,
 )
@@ -71,10 +81,14 @@ from .plan import lane_capacity
 
 
 def _ep_pack(x, router, *, E: int, S: int, K: int, C_lane: int,
-             reassign: bool, dead_shards: tuple = ()):
+             reassign: bool, dead_shards: tuple = (), tp=None):
     """Leg 1 of one expert shard: route its ``(T/S, d)`` tokens ``x``
     against the replicated ``router``, plan the lanes (DLBC reassignment
-    under ``reassign``) and pack them.  Returns ``(sendx, plan)``:
+    under ``reassign``) and pack them.  With ``tp`` (the model ranks, each
+    computing a d_ff slice of the experts) the packed tokens enter the
+    tensor-parallel region: their gradient, partial on each model rank,
+    is all-reduced over them; routing reads ``x`` as it is, since it runs
+    whole and alike on every model rank.  Returns ``(sendx, plan)``:
     ``sendx`` the ``(S·C_lane, d + 1)`` lane buffer (block ``j`` for
     shard ``j``; column ``d`` the +1-encoded local expert id, which
     carries no gradient), ``plan`` what :func:`_ep_combine` needs."""
@@ -113,8 +127,8 @@ def _ep_pack(x, router, *, E: int, S: int, K: int, C_lane: int,
     # slot can coincide with a kept one's, so dropped pairs are written to
     # a spare row past the buffer, which is cut off.
     meta = (ids_f % E_local + 1).to(x.dtype)                   # (Tl, K)
-    payload = torch.cat([x[:, None, :].expand(Tl, K, d), meta[..., None]],
-                        dim=-1)
+    payload = torch.cat([copy_to_tp(x, tp)[:, None, :].expand(Tl, K, d),
+                         meta[..., None]], dim=-1)
     target = torch.where(keep, slot, S * C_lane).reshape(-1)
     sendx = torch.zeros((S * C_lane + 1, d + 1), dtype=x.dtype,
                         device=x.device)
@@ -158,18 +172,22 @@ def _ep_combine(backx, plan, dtype):
 
 def _ep_shard(x, router, w1, w3, w2, *, comm, E: int, S: int, K: int,
               C_lane: int, C_local: int, act: str, use_kernel: bool,
-              impl: str, reassign: bool, dead_shards: tuple = ()):
+              impl: str, reassign: bool, dead_shards: tuple = (), tp=None):
     """One expert shard's slice of the dispatch round: ``x`` its
-    ``(T/S, d)`` tokens, ``w1``/``w3``/``w2`` its ``E/S`` experts.
+    ``(T/S, d)`` tokens, ``w1``/``w3``/``w2`` its ``E/S`` experts (with
+    ``tp``, this model rank's d_ff slice of them: the lane results are
+    then partial sums, all-reduced over the model ranks before the
+    return exchange, so the gates multiply whole values).
 
     Returns ``(y_local, stats_row)`` where ``stats_row`` is the shard's
     ``[sent, received, reassigned, admitted]`` counts.
     """
     sendx, plan = _ep_pack(x, router, E=E, S=S, K=K, C_lane=C_lane,
-                           reassign=reassign, dead_shards=dead_shards)
+                           reassign=reassign, dead_shards=dead_shards, tp=tp)
     recv = exchange(sendx, S, comm=comm, impl=impl)
     y_recv, valid, keep_loc = _ep_experts(recv, w1, w3, w2, C_local=C_local,
                                           act=act, use_kernel=use_kernel)
+    y_recv = reduce_from_tp(y_recv, tp)
     # The exchange is its own inverse on lane layout: block i of y_recv
     # holds results for source i's lane, so one more exchange files each
     # shard's own lane results back under the slots it packed them from.
@@ -185,7 +203,7 @@ def _ep_shard(x, router, w1, w3, w2, *, comm, E: int, S: int, K: int,
 def ep_dispatch_combine(p: dict, cfg, x, *, mesh=None,
                         use_kernel: bool = True, impl: str = "all_to_all",
                         return_stats: bool = False,
-                        dead_shards: tuple = (), comm=None):
+                        dead_shards: tuple = (), comm=None, tp=None):
     """Expert-parallel dispatch → FFN → combine over the ``expert`` axis.
 
     ``x`` is the flattened ``(T, d)`` token matrix, the same on every rank
@@ -194,9 +212,15 @@ def ep_dispatch_combine(p: dict, cfg, x, *, mesh=None,
     on one rank).  ``comm`` (a
     :class:`~repro_torch.distributed.comm.Collectives` over the expert
     group) issues and counts the collectives; without it one is made over
-    ``mesh``'s expert axis.  ``p``'s expert weights are whole (E; this
-    rank's ``E/S`` are sliced out) or already this rank's (``E/S``, the
-    training layout).
+    ``mesh``'s expert axis.  ``tp`` (a ``Collectives`` over the model
+    ranks of a ``(expert, data, model)`` mesh, which hold the same tokens)
+    runs the round inside the tensor-parallel region: each model rank
+    computes its d_ff slice of its expert rank's ``E/S`` experts, and one
+    all-reduce over the model ranks sums the lane results before the
+    return exchange (and one sums the tokens' gradient backward).  ``p``'s
+    expert weights are whole (E; this rank's ``E/S`` are sliced out), the
+    rank's ``E/S``, or with ``tp`` the rank's ``E/S`` × ``d_ff/m`` (the
+    training layout); whatever is whole is sliced.
 
     Differentiable: backward, the two exchanges run again on the
     gradients (``moe_gmm_bwd`` per shard in between on the card), the
@@ -210,8 +234,6 @@ def ep_dispatch_combine(p: dict, cfg, x, *, mesh=None,
     or drops (LC) before the collective — see :func:`ep_round` for the
     retry loop that discovers the dead set.
     """
-    if mesh is not None:
-        require_executable(mesh, "ep")
     T, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     S = comm.size if comm is not None else expert_axis_size(mesh)
@@ -248,14 +270,25 @@ def ep_dispatch_combine(p: dict, cfg, x, *, mesh=None,
                          f"nor this rank's E/S={El}")
     experts = slice(comm.rank * El, (comm.rank + 1) * El) if n != El \
         else slice(None)
+    w1, w3, w2 = (p[k][experts] for k in ("w1", "w3", "w2"))
+    m = tp.size if tp is not None else 1
+    f = w1.shape[-1]
+    if f not in (cfg.d_ff, cfg.d_ff // m):
+        raise ValueError(f"expert weights of width {f}: neither d_ff="
+                         f"{cfg.d_ff} nor this model rank's d_ff/m="
+                         f"{cfg.d_ff // m}")
+    if f != cfg.d_ff // m:
+        fl = f // m
+        cols = slice(tp.rank * fl, (tp.rank + 1) * fl)
+        w1, w3, w2 = w1[..., cols], w3[..., cols], w2[..., cols, :]
     y, stats_row = _ep_shard(
-        slice_to_ep(x, comm), p["router"].float(), p["w1"][experts],
-        p["w3"][experts], p["w2"][experts], comm=comm, E=E, S=S, K=K,
+        slice_to_ep(x, comm), p["router"].float(), w1, w3, w2, comm=comm,
+        E=E, S=S, K=K,
         C_lane=C_lane, C_local=C_local, act=cfg.act, use_kernel=use_kernel,
         impl=impl,
         # "lc" keeps its static single-round semantics on the EP substrate
         # too (no reassignment), so the LC-vs-DLBC comparison holds
-        reassign=cfg.moe_dispatch != "lc", dead_shards=dead_shards)
+        reassign=cfg.moe_dispatch != "lc", dead_shards=dead_shards, tp=tp)
     y = gather_from_ep(y, comm)
     if not return_stats:
         return y

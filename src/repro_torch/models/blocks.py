@@ -79,7 +79,7 @@ def layer_apply(p: dict, cfg, x: torch.Tensor, kind: str, *,
 
 def layer_decode_apply(p: dict, cfg, x: torch.Tensor, cache: dict,
                        cache_index, kind: str, *,
-                       ctx_kv: Optional[dict] = None, tp=None):
+                       ctx_kv: Optional[dict] = None, tp=None, ep=None):
     """One block, one token; ``cache`` = this layer's {"k", "v"} and/or
     {"conv", "h"} ({} for a ``cross`` layer), updated IN PLACE; ``ctx_kv``
     = this layer's precomputed cross K/V {"k", "v"} (B, T, KV, dh) for
@@ -90,7 +90,9 @@ def layer_decode_apply(p: dict, cfg, x: torch.Tensor, cache: dict,
     the write index wraps and every entry is valid once it is full.
     ``tp``: a model-axis ``Collectives`` when ``p`` and the caches are one
     model rank's (q/k/v column-parallel on its heads, ``wo``, the FFN and
-    the mamba ``out_proj`` row-parallel)."""
+    the mamba ``out_proj`` row-parallel); ``ep``: an expert-axis one when
+    the MoE layer takes the EP round (inside the tensor-parallel region
+    when both are given)."""
     B = x.shape[0]
     h = L.norm_apply(p["ln1"], x, cfg.norm)
     if kind == "ssm":
@@ -99,7 +101,7 @@ def layer_decode_apply(p: dict, cfg, x: torch.Tensor, cache: dict,
     if kind == "cross":
         x = x + L.cross_decode_apply(p["attn"], cfg, h, ctx_kv, tp)
         h = L.norm_apply(p["ln2"], x, cfg.norm)
-        return x + _ffn(p, cfg, h, kind, tp), cache
+        return x + _ffn(p, cfg, h, kind, tp, ep), cache
     T = cache["k"].shape[1]
     ci = L._per_row(cache_index, B, x.device)
     idx = torch.remainder(ci, T) if cfg.sliding_window > 0 else ci
@@ -127,14 +129,14 @@ def layer_decode_apply(p: dict, cfg, x: torch.Tensor, cache: dict,
         h = L.norm_apply(p["lnx"], x, cfg.norm)
         x = x + L.cross_decode_apply(p["cross"], cfg, h, ctx_kv, tp)
     h = L.norm_apply(p["ln2"], x, cfg.norm)
-    return x + _ffn(p, cfg, h, kind, tp), cache
+    return x + _ffn(p, cfg, h, kind, tp, ep), cache
 
 
 def layer_prefill_apply(p: dict, cfg, x: torch.Tensor, cache: dict,
-                        cache_index, count, kind: str, tp=None):
+                        cache_index, count, kind: str, tp=None, ep=None):
     """One block over a ``(B, C)`` token span (chunked prefill); the
     layer's cache is updated IN PLACE.  Returns ``(x, cache)``.  ``tp``
-    as in :func:`layer_decode_apply`."""
+    and ``ep`` as in :func:`layer_decode_apply`."""
     if kind not in ("dense", "moe"):
         raise NotImplementedError(
             f"span prefill is only defined for dense/moe blocks, "
@@ -144,4 +146,4 @@ def layer_prefill_apply(p: dict, cfg, x: torch.Tensor, cache: dict,
                                    count, tp)
     x = x + a
     h = L.norm_apply(p["ln2"], x, cfg.norm)
-    return x + _ffn(p, cfg, h, kind, tp), cache
+    return x + _ffn(p, cfg, h, kind, tp, ep), cache

@@ -40,7 +40,7 @@ from ..distributed.comm import (
     copy_to_tp, expert_comm, model_comm, reduce_from_tp,
 )
 from ..distributed.sharding import (
-    current_mesh, data_size, model_size, require_executable, shard_act,
+    current_mesh, data_size, expert_axis_size, model_size, shard_act,
     shard_logits, tp_local_config,
 )
 from . import blocks as B
@@ -337,7 +337,8 @@ def init_cache(cfg: ModelConfig, bsz: int, cache_len: int,
         if bsz % D:
             raise ValueError(f"batch of {bsz} rows does not split over "
                              f"{D} data ranks")
-        cfg, bsz = tp_local_config(cfg, model_size(mesh)), bsz // D
+        cfg = tp_local_config(cfg, model_size(mesh), expert_axis_size(mesh))
+        bsz //= D
     dev = resolve_device(device)
     dt = torch_dtype(cfg.dtype)
     out = {}
@@ -369,7 +370,7 @@ def init_cache(cfg: ModelConfig, bsz: int, cache_len: int,
 
 
 def decode_step(params: dict, cfg: ModelConfig, cache: dict,
-                batch: dict, tp=None) -> tuple:
+                batch: dict, tp=None, ep=None) -> tuple:
     """One token for every sequence against the cache.
 
     batch = {"tokens": (B, 1), "cache_index": () or (B,)} — returns
@@ -382,10 +383,18 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     larger than 1).  With it ``params`` are this rank's compute shards,
     ``cache`` this rank's (:func:`init_cache` on the mesh) and ``batch``
     this rank's rows; the logits are its vocab shard, ``(B,
-    padded_vocab / m)`` (:func:`vocab_argmax` picks the tokens)."""
-    require_executable(current_mesh(), "serve")
+    padded_vocab / m)`` (:func:`vocab_argmax` picks the tokens).  ``ep``:
+    the expert-axis ``Collectives`` of the MoE layers' EP round (default,
+    as in :func:`forward`, :func:`~repro_torch.distributed.comm.
+    expert_comm` of the current mesh); beside a model axis the round runs
+    inside the tensor-parallel region, ``params`` holding this rank's
+    ``E/S`` experts × ``d_ff/m``, and the ``B`` rows of this data rank
+    (alike on its expert and model ranks) are padded to a multiple of the
+    expert axis inside the round."""
     if tp is None:
         tp = model_comm(current_mesh())
+    if ep is None:
+        ep = expert_comm(current_mesh(), cfg)
     ci = batch["cache_index"]
     x = shard_act(_embed(params, batch["tokens"], tp))
     if cfg.family == "vlm":
@@ -395,30 +404,30 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
             for j in range(_n_layers(gp)):
                 x, _ = B.layer_decode_apply(_layer(gp, j), cfg, x,
                                             _layer(gc, j), ci, "dense",
-                                            tp=tp)
+                                            tp=tp, ep=ep)
             x, _ = B.layer_decode_apply(
                 _layer(params["cross_layers"], gi), cfg, x, {}, ci, "cross",
-                ctx_kv=_layer(cache["cross_kv"], gi), tp=tp)
+                ctx_kv=_layer(cache["cross_kv"], gi), tp=tp, ep=ep)
     elif cfg.family == "encdec":
         stack = params["dec_layers"]
         for i in range(_n_layers(stack)):
             x, _ = B.layer_decode_apply(
                 _layer(stack, i), cfg, x, _layer(cache["dec_layers"], i), ci,
-                "dec", ctx_kv=_layer(cache["cross_kv"], i), tp=tp)
+                "dec", ctx_kv=_layer(cache["cross_kv"], i), tp=tp, ep=ep)
     else:
         kind = _plan(cfg)[0][1]
         stack = params["layers"]
         for i in range(_n_layers(stack)):
             x, _ = B.layer_decode_apply(_layer(stack, i), cfg, x,
                                         _layer(cache["layers"], i), ci, kind,
-                                        tp=tp)
+                                        tp=tp, ep=ep)
     x = L.norm_apply(params["final_norm"], x, cfg.norm)
     return shard_logits((copy_to_tp(x, tp) @ _head(params, cfg))[:, 0]), \
         cache
 
 
 def prefill_step(params: dict, cfg: ModelConfig, cache: dict,
-                 batch: dict, tp=None) -> tuple:
+                 batch: dict, tp=None, ep=None) -> tuple:
     """Write a span of prompt tokens through the model at per-row cache
     indices — the chunked-prefill primitive of the continuous batcher.
 
@@ -433,14 +442,15 @@ def prefill_step(params: dict, cfg: ModelConfig, cache: dict,
     Every chunk runs through the same static ``(B, C)`` buffer and each
     query attends over the full cache, so chunked prefill is bitwise
     equal to whole-prompt prefill.  Only full-cache attention families
-    (dense/moe, no sliding window) are supported.  ``tp``, and the
-    params, cache, rows and logits on a model axis, as in
+    (dense/moe, no sliding window) are supported.  ``tp`` and ``ep``, and
+    the params, cache, rows and logits on a mesh, as in
     :func:`decode_step`; chunked prefill stays bitwise equal to whole
     prefill there, each rank's partial sums reduced alike whatever the
     chunking."""
-    require_executable(current_mesh(), "serve")
     if tp is None:
         tp = model_comm(current_mesh())
+    if ep is None:
+        ep = expert_comm(current_mesh(), cfg)
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"prefill_step needs a position-indexed KV cache "
@@ -459,7 +469,7 @@ def prefill_step(params: dict, cfg: ModelConfig, cache: dict,
     for i in range(_n_layers(stack)):
         x, _ = B.layer_prefill_apply(_layer(stack, i), cfg, x,
                                      _layer(cache["layers"], i),
-                                     cache_index, count, kind, tp=tp)
+                                     cache_index, count, kind, tp=tp, ep=ep)
     x = L.norm_apply(params["final_norm"], x, cfg.norm)
     last = torch.clamp(count - 1, 0, tokens.shape[1] - 1)
     x = torch.gather(x, 1, last[:, None, None].expand(-1, 1, x.shape[-1]))

@@ -24,7 +24,9 @@ the DLBC re-route run whole and alike on every rank (the router is
 replicated, so every rank takes the same decisions); where ``m`` divides
 E each rank runs its ``E/m`` experts (the reference's E-over-model spec),
 else every expert at ``d_ff/m``; the ranks' partial sums are then
-all-reduced.  The gates and the dispatched tokens enter the
+all-reduced.  Beside an expert axis that takes E the EP round runs inside
+that region, each model rank with the ``d_ff/m`` slice of its expert
+rank's ``E/S`` experts.  The gates and the dispatched tokens enter the
 tensor-parallel region, so their gradients are summed over the ranks.
 """
 
@@ -136,7 +138,10 @@ def moe_apply(p: dict, cfg, x: torch.Tensor,
     :func:`repro_torch.distributed.comm.expert_comm` gives it) the layer
     takes the EP round over ``ep``'s ranks, ``p``'s experts whole or this
     rank's ``E/S``; without it, a config with ``expert_parallel`` takes
-    the round over the current mesh's expert axis (the serving path).
+    the round over the current mesh's expert axis.  With both (the
+    ``(expert, data, model)`` layout) the round runs inside the
+    tensor-parallel region over ``tp``, ``p``'s experts this rank's ``E/S``
+    × ``d_ff/m`` (or whole, sliced).
     The caller passes ``ep`` where the mesh context may be unset: a
     ``remat`` recompute runs on the autograd engine's thread."""
     orig_shape = x.shape
@@ -153,7 +158,8 @@ def moe_apply(p: dict, cfg, x: torch.Tensor,
         from ..ep.dispatch import ep_dispatch_combine
         pad = (-T) % ep.size
         xp = F.pad(x, (0, 0, 0, pad)) if pad else x
-        out = ep_dispatch_combine(p, cfg, xp, comm=ep, use_kernel=use_kernel,
+        out = ep_dispatch_combine(p, cfg, xp, comm=ep, tp=tp,
+                                  use_kernel=use_kernel,
                                   return_stats=return_stats)
         y, ep_stats = out if return_stats else (out, None)
         y = (y[:T] if pad else y).reshape(orig_shape)

@@ -96,7 +96,12 @@ admissions, prefill chunks and virtual-time costs — and launches on its
 ``n_slots / D`` rows with its compute shards (tensor-parallel serving in
 :mod:`repro_torch.models.model`); the next tokens are reduced over the
 model ranks' vocab shards (``MDL.vocab_argmax``) and all-gathered over
-the data ranks, so every rank's scheduler sees every slot.
+the data ranks, so every rank's scheduler sees every slot.  On the
+reference's ``(expert S, data D, model m)`` layout the expert ranks of
+one data rank launch on the same rows, each with its expert rank's
+``E/S`` experts × ``d_ff/m`` (its caches whole over the expert axis),
+and the MoE layers take the EP round over the expert ranks inside the
+tensor-parallel region.
 """
 
 from __future__ import annotations
@@ -110,10 +115,8 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from ..distributed.comm import Collectives, mesh_group
-from ..distributed.sharding import (
-    data_size, fsdp_axes, mesh_context, require_executable,
-)
+from ..distributed.comm import Collectives, expert_comm, mesh_group
+from ..distributed.sharding import data_size, fsdp_axes, mesh_context
 from ..models import model as MDL
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs
@@ -265,14 +268,15 @@ class ContinuousBatcher:
         #: scheduler over all ``n_slots``; its launches carry its rows
         #: (``_rows``) and ``params`` are its compute shards.  ``tp`` /
         #: ``dp`` are the model and data axes' counted collectives, issued
-        #: at any axis size (a one-rank one is a copy)
+        #: at any axis size (a one-rank one is a copy); ``ep`` the expert
+        #: axis's, where the MoE layers take the EP round on it
         self.mesh = mesh
-        self.tp = self.dp = None
+        self.tp = self.dp = self.ep = None
         self._rows = slice(0, n_slots)
         if mesh is not None:
-            require_executable(mesh, "serve")
             self.tp = Collectives(mesh.get_group("model"))
             self.dp = Collectives(mesh_group(mesh, fsdp_axes(mesh)))
+            self.ep = expert_comm(mesh, cfg)
         self.n_slots = n_slots
         self.cache_len = cache_len
         #: static width of the batched prefill launch buffer — every
@@ -359,7 +363,8 @@ class ContinuousBatcher:
         of this rank's rows of the host arrays in ``batch``."""
         rows = {k: self._on_device(v[self._rows]) for k, v in batch.items()}
         with mesh_context(self.mesh):
-            return step(self.params, self.cfg, self.cache, rows, tp=self.tp)
+            return step(self.params, self.cfg, self.cache, rows, tp=self.tp,
+                        ep=self.ep)
 
     def _next_tokens(self, logits: torch.Tensor) -> np.ndarray:
         """Every slot's next token: the argmax over the REAL vocab (the

@@ -79,28 +79,28 @@ def _schedule(step: torch.Tensor, ocfg: AdamWConfig) -> torch.Tensor:
     return ocfg.lr * warm
 
 
-def global_norm(tree, comm=None, sharded=None, split=None, owned=None
+def global_norm(tree, comm=None, sharded=None, split=(), owned=None
                 ) -> torch.Tensor:
     """The L2 norm over every leaf.  With ``comm``, the leaves flagged in
-    ``sharded`` are this rank's FSDP pieces; with ``split`` (the
-    ``Collectives`` of the axis that splits the params into compute
-    shards: the model or the expert ranks), ``owned`` flags the leaves
-    whose copy on this rank counts (its piece of a split leaf; rank 0's
-    of a replicated one).  The per-leaf sums of squares are all-reduced
-    in one call per group (a leaf a rank does not count contributing
-    zero) and then added in leaf order, as without a mesh, so every rank
-    gets the same norm."""
+    ``sharded`` are this rank's FSDP pieces; ``split`` lists the
+    ``Collectives`` of the axes that split the params into compute shards
+    (the expert ranks, the model ranks, or both), and ``owned`` flags the
+    leaves whose copy on this rank counts once over all of them (its
+    piece of a split leaf; the first rank's of a replicated one).  The
+    per-leaf sums of squares are all-reduced in one call per group (a
+    leaf a rank does not count contributing zero) and then added in leaf
+    order, as without a mesh, so every rank gets the same norm."""
     sums = [torch.sum(l.float() ** 2) for l in tree_leaves(tree)]
-    if comm is None and split is None:
+    if comm is None and not split:
         return torch.sqrt(sum(sums))
     mine = [True] * len(sums)
     if comm is not None:
         mine = [m and (s or comm.rank == 0) for m, s in zip(mine, sharded)]
-    if split is not None:
+    if split:
         mine = [m and o for m, o in zip(mine, owned)]
     vec = torch.where(torch.tensor(mine, device=sums[0].device),
                       torch.stack(sums), 0.0)
-    for c in (comm, split):
+    for c in (comm, *split):
         if c is not None:
             c.all_reduce(vec)
     return torch.sqrt(sum(vec.unbind()))
@@ -108,11 +108,11 @@ def global_norm(tree, comm=None, sharded=None, split=None, owned=None
 
 @torch.no_grad()
 def adamw_update(params: dict, grads: dict, state: dict, ocfg: AdamWConfig,
-                 comm=None, sharded=None, split=None, owned=None):
+                 comm=None, sharded=None, split=(), owned=None):
     """Returns ``(new_params, new_state, metrics)``, written in place into
     ``params`` and ``state``; ``comm``, ``sharded``, ``split`` and
     ``owned`` as in :func:`global_norm` (the afe policies' FSDP pieces,
-    the model or expert ranks' compute shards).
+    the expert and model ranks' compute shards).
 
     The non-finite-gradient guard is the exception-semantics analogue: a
     bad microbatch must not corrupt the step — every leaf keeps its params,

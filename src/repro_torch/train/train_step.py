@@ -46,8 +46,7 @@ summed over them in one all-reduce at step end (AFE: one join per step in
 place of one per layer and microbatch).  The data-parallel sync stays
 over the fsdp axes, the gradient norm adds the expert ranks' sums, and
 the round's collectives and these two all-reduces are counted apart, in
-``metrics["ep_collectives"]``.  An expert axis together with a model axis
-larger than 1 raises ``NotImplementedError``.
+``metrics["ep_collectives"]``.
 
 On a ``"model"`` axis of ``m > 1`` ranks the step is tensor-parallel
 (Megatron, :mod:`repro_torch.distributed.comm`): ``params`` and the
@@ -58,6 +57,15 @@ the data ranks of one model rank sync its shards, and the gradient norm
 adds the model ranks' sums.  The layers' all-reduces over the model
 ranks (the recompute under ``remat`` re-issues a layer's forward ones)
 and the norm's are counted apart, in ``metrics["tp_collectives"]``.
+
+On both (the reference's ``(expert, data, model)`` production layout)
+each rank holds its expert rank's ``E/S`` experts with their d_ff over
+the model ranks, and the rest as on a model axis alone
+(``tp_local_params`` with ``axis=("expert", "model")``); the EP round
+runs inside the tensor-parallel region, the FSDP layout is built over
+the doubly-cut tree, the router's gradient is summed over the expert
+ranks only (it is whole on each model rank), and the norm adds the
+expert ranks' sums and the model ranks'.
 
 The math is the reference's: per-microbatch gradients of ``loss_fn``
 (autograd; on the card through the kernels' backward kernels), summed in
@@ -83,8 +91,8 @@ from ..distributed.comm import (
     Collectives, expert_comm, mesh_group, model_comm,
 )
 from ..distributed.sharding import (
-    current_mesh, ep_summed, fsdp_axes, fsdp_layout, require_executable,
-    tp_gather_params, tp_local_params, tp_owned,
+    current_mesh, ep_summed, fsdp_axes, fsdp_layout, tp_gather_params,
+    tp_local_params, tp_owned,
 )
 from ..models import model as MDL
 from ..sched import FixedCapacity, get_policy
@@ -304,22 +312,28 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
                   k_chunk=scfg.k_chunk, ssm_chunk=scfg.ssm_chunk,
                   remat=scfg.remat)
     mesh = current_mesh()
-    require_executable(mesh, "train")
     group = layout = None
     tp, ep = model_comm(mesh), expert_comm(mesh, cfg)
-    # the axis whose ranks hold compute shards of the params: the model
-    # axis, or the expert axis (never both: require_executable)
-    split, axis = (tp, "model") if tp is not None else (ep, "expert")
-    s_rank, s_size = (split.rank, split.size) if split is not None \
-        else (0, 1)
+    # the axes whose ranks hold compute shards of the params: the expert
+    # axis (E), the model axis, or both (the production layout: E over
+    # the expert ranks, then the heads and each expert's d_ff over the
+    # model ranks), as one cut of tp_local_params
+    splits = [(c, a) for c, a in ((ep, "expert"), (tp, "model"))
+              if c is not None]
+    cut = None
+    if len(splits) == 1:
+        (c, axis), = splits
+        cut = (c.rank, c.size, axis)
+    elif splits:
+        cut = ((ep.rank, tp.rank), (ep.size, tp.size), ("expert", "model"))
     shapes = MDL.param_shapes(cfg)
     owned = summed = None
-    if split is not None:
-        shapes = tp_local_params(shapes, cfg, s_rank, s_size, axis)
-        owned = tree_leaves(tp_owned(shapes, cfg, s_rank, s_size, axis))
+    if cut is not None:
+        shapes = tp_local_params(shapes, cfg, *cut)
+        owned = tree_leaves(tp_owned(shapes, cfg, *cut))
     if ep is not None:
         summed = [i for i, f in enumerate(tree_leaves(
-            ep_summed(shapes, cfg, s_size))) if f]
+            ep_summed(shapes, cfg, ep.size))) if f]
     if mesh is not None:
         group = mesh_group(mesh, fsdp_axes(mesh))
         if dp_shard:
@@ -362,7 +376,7 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
         comm = Collectives(group) if mesh is not None else None
         tpc = Collectives(tp.group) if tp is not None else None
         epc = Collectives(ep.group) if ep is not None else None
-        splitc = tpc or epc
+        splitc = [c for c in (epc, tpc) if c is not None]
         lo, hi = 0, b
         if comm is not None:
             if b % comm.size:
@@ -468,20 +482,19 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
         return params, opt_state, metrics
 
     def local_state(params, opt_state=None):
-        """This rank's params (its model or expert rank's compute shards)
-        and, when given, optimizer state (those shards' FSDP pieces under
-        the afe policies) cut from whole trees (a fresh init, a
-        checkpoint)."""
-        if split is not None:
-            params = tp_local_params(params, cfg, s_rank, s_size, axis)
+        """This rank's params (its model and / or expert rank's compute
+        shards) and, when given, optimizer state (those shards' FSDP
+        pieces under the afe policies) cut from whole trees (a fresh init,
+        a checkpoint)."""
+        if cut is not None:
+            params = tp_local_params(params, cfg, *cut)
         if opt_state is None:
             return params
         opt_state = dict(opt_state)
         for k in ("m", "v", "master"):
             if k in opt_state:
-                if split is not None:
-                    opt_state[k] = tp_local_params(opt_state[k], cfg,
-                                                   s_rank, s_size, axis)
+                if cut is not None:
+                    opt_state[k] = tp_local_params(opt_state[k], cfg, *cut)
                 if layout is not None:
                     opt_state[k] = layout.local_tree(opt_state[k])
         return params, opt_state
@@ -489,10 +502,13 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
     def whole_state(params, opt_state):
         """The whole params and optimizer state on every rank from each
         rank's (collective over the mesh: the FSDP pieces all-gathered
-        over the data ranks, then the compute shards over the model or
-        expert ranks); the inverse of :func:`local_state`."""
+        over the data ranks, then the compute shards over the model
+        ranks, then over the expert ranks); the inverse of
+        :func:`local_state`."""
         comm = Collectives(group) if mesh is not None else None
-        sc = Collectives(split.group) if split is not None else None
+        sc = [Collectives(c.group) for c, _ in splits]
+        # one axis's Collectives, or the (expert, model) pair
+        sc = None if not sc else sc[0] if len(sc) == 1 else tuple(sc)
         local = tree_leaves(params)
         opt_state = dict(opt_state)
         for k in ("m", "v", "master"):
@@ -505,15 +521,17 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
                         comm, [x], [d], [p.shape])[0].contiguous()
                     for x, d, p in zip(pieces, dims, local)])
             if sc is not None:
-                opt_state[k] = tp_gather_params(opt_state[k], cfg, sc, axis)
+                opt_state[k] = tp_gather_params(opt_state[k], cfg, sc,
+                                                cut[2])
         if sc is not None:
-            params = tp_gather_params(params, cfg, sc, axis)
+            params = tp_gather_params(params, cfg, sc, cut[2])
         return params, opt_state
 
     step.layout = layout
-    # "model" or "expert" when this rank holds compute shards of the
-    # params (checkpoints are then saved whole), else None
-    step.split_axis = axis if split is not None else None
+    # "model", "expert" or ("expert", "model") when this rank holds
+    # compute shards of the params (checkpoints are then saved whole),
+    # else None
+    step.split_axis = cut[2] if cut is not None else None
     step.local_state = local_state
     step.whole_state = whole_state
     # Static per-step schedule record: the trainer multiplies these by

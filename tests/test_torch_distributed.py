@@ -20,10 +20,10 @@ collectives in ``train/train_step.py``, per-rank checkpoints) on the CPU.
   bucket plan) and follow the reference's ladder.  The ``afe`` step's
   2-rank checkpoint, restored at world size 1, equals the 2-rank state;
   ``run_training`` on the 2 ranks crashes, resumes from its per-rank
-  checkpoint and ends where an uninterrupted run does.  An expert axis
-  beside a model axis under ``decode_step`` / ``prefill_step`` raises
-  (tensor-parallel serving itself is ``tests/test_torch_tp_serve.py``'s,
-  the train step on a model axis ``tests/test_torch_tp.py``'s).
+  checkpoint and ends where an uninterrupted run does (tensor-parallel
+  serving is ``tests/test_torch_tp_serve.py``'s, the train step on a
+  model axis ``tests/test_torch_tp.py``'s, and both beside an expert
+  axis ``tests/test_torch_ep_tp.py``'s).
 * **Single process vs the reference** — each policy's step against the
   reference's, at ``tests/test_torch_train.py``'s tolerances.
 """
@@ -525,25 +525,6 @@ def test_trainer_resumes_on_two_ranks(dist_results):
         assert r["crashed"] and r["resumed_from"] == 2 and \
             r["completed"] == 4
         assert r["last_loss_diff"] == 0.0 and r["grad_norm_diff"] == 0.0
-
-
-@pytest.mark.parametrize("entry", ["decode_step", "prefill_step"])
-def test_expert_and_model_axes_serving_raises(entry):
-    """Tensor-parallel serving runs (``tests/test_torch_tp_serve.py``); what
-    the decode and span-prefill steps (hence the batcher) still refuse is
-    an expert axis beside a model axis, naming the ROADMAP item."""
-    cfg = dataclasses.replace(t_get_config(ARCH, smoke=True),
-                              dtype="float32")
-    params = TM.init_params(cfg, torch.Generator().manual_seed(0),
-                            device="cpu")
-    cache = TM.init_cache(cfg, 2, 8, device="cpu")
-    batch = {"tokens": torch.zeros((2, 1), dtype=torch.long),
-             "cache_index": torch.zeros(2, dtype=torch.long),
-             "count": torch.ones(2, dtype=torch.long)}
-    with mesh_context(MeshShape(("expert", "data", "model"), (2, 1, 2))):
-        with pytest.raises(NotImplementedError,
-                           match="EP with a model axis"):
-            getattr(TM, entry)(params, cfg, cache, batch)
 
 
 # ---------------------------------------------------------------------------

@@ -57,7 +57,7 @@ from repro_torch import bridge  # noqa: E402
 from repro_torch.ckpt.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config as t_get_config  # noqa: E402
 from repro_torch.distributed.sharding import (  # noqa: E402
-    MeshShape, ep_summed, fsdp_layout, mesh_context, require_executable,
+    MeshShape, ep_summed, fsdp_layout, mesh_context,
     tp_assemble, tp_local_params, tp_owned,
 )
 from repro_torch.models import model as TM  # noqa: E402
@@ -772,7 +772,7 @@ def test_trainer_resumes_on_expert2(ep_results):
 
 
 # ---------------------------------------------------------------------------
-# In process: the expert layout and the refusal
+# In process: the expert layout
 # ---------------------------------------------------------------------------
 
 
@@ -807,14 +807,3 @@ def test_expert_owned_leaves_count_every_element_once():
                       shapes, cfg, r, 2, "expert")), tree_leaves(tp_owned(
                           shapes, cfg, r, 2, "expert"))) if own)
     assert counted == total
-
-
-def test_expert_and_model_axes_train_raises():
-    """An expert axis with a model axis larger than 1 (the reference's
-    production layout) is the next slice: the train step refuses it by
-    its ROADMAP item; an expert axis alone does not."""
-    with pytest.raises(NotImplementedError, match="EP with a model axis"):
-        require_executable(MeshShape(("expert", "data", "model"),
-                                     (2, 1, 2)), "train")
-    require_executable(MeshShape(("expert", "data", "model"), (2, 2, 1)),
-                       "train")

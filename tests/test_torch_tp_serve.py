@@ -22,9 +22,8 @@ does); any rank's traceback fails it.
   ``ContinuousBatcher``: its tokens, admission trace, decode costs and
   stats equal the one-process batcher's exactly, on every rank; each
   axis's collectives are exact per prefill round and decode step.
-* **In process** — cache cuts put back together bit for bit, ``init_cache``
-  on a mesh has the cut layout's shapes, and ``require_executable``
-  refuses serving only with an expert axis beside a model axis.
+* **In process** — cache cuts put back together bit for bit, and
+  ``init_cache`` on a mesh has the cut layout's shapes.
 """
 
 import dataclasses
@@ -49,7 +48,7 @@ from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import get_config as t_get_config  # noqa: E402
 from repro_torch.configs.registry import ARCH_IDS  # noqa: E402
 from repro_torch.distributed.sharding import (  # noqa: E402
-    MeshShape, require_executable, tp_assemble_cache, tp_local_cache,
+    MeshShape, tp_assemble_cache, tp_local_cache,
 )
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.serve import batcher as TB  # noqa: E402
@@ -635,12 +634,3 @@ def test_init_cache_on_mesh_has_local_layout(name):
     assert [(p, a.shape, a.dtype) for p, a in _leaves(local)] == \
         [(p, a.shape, a.dtype) for p, a in _leaves(cut)]
     assert len(tree_leaves(local)) == len(tree_leaves(cut))
-
-
-def test_serving_refuses_only_an_expert_axis_beside_a_model_axis():
-    for shape in ((("data", "model"), (2, 2)), (("data", "model"), (1, 16)),
-                  (("expert", "data", "model"), (2, 2, 1))):
-        require_executable(MeshShape(*shape), "serve")
-    with pytest.raises(NotImplementedError, match="EP with a model axis"):
-        require_executable(MeshShape(("expert", "data", "model"),
-                                     (2, 1, 2)), "serve")
