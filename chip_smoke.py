@@ -161,7 +161,10 @@ one cross layer, since its ~180 GB of bf16 weights exceed the card):
     two full-width bf16 granite steps (seq 1024, batch 8 in 2
     microbatches) within 2e-2 of the one-process steps, per-rank launches
     exactly ``expected_launches`` of the rank-local config, per-rank peak
-    memory.
+    and activation memory.  The model axis is
+    sequence-parallel (2 divides S): granite's model-axis collectives
+    are exactly ``tp_expected``'s (all-gathers, reduce-scatters and
+    all-reduces).
 20. ``ep_train``: expert parallelism under autograd.  (a) On a one-rank
     NCCL group, the EP round (``ep_dispatch_combine`` over an expert-axis
     ``Collectives``) forward and backward at granite's full MoE width on
@@ -214,14 +217,24 @@ one cross layer, since its ~180 GB of bf16 weights exceed the card):
     the 4 ranks' tokens identical, ``moe_gmm`` counted per shape,
     collectives exact, step p50 / p99, tokens/s, peak memory per rank,
     the share of tokens equal to one process's and the margins where
-    they first differ.
+    they first differ.  Training and prefill rounds run
+    sequence-parallel over the model ranks (decode does not), their
+    collectives counted exactly.
+23. ``multi_pod``: a multi-pod mesh with a model axis: eight processes
+    on the one card over gloo at ``(pod 2, data 2, model 2)``, granite at
+    full width and 2 of its 24 layers, one ``afe`` and one ``lc`` step
+    (seq 1024, batch 8 in 2 microbatches, sequence-parallel) against one
+    process's: each rank's data group over ``("pod", "data")``, the mean
+    loss over the data ranks within 2e-2, launches and each axis's
+    collectives exact.
 
 Each main-path run (each forward of phases 4, 7, 9, 10, 15 and 16; the
 serve CLI and the batcher run of phase 5 for ``moe_gmm``; the four steps
 of phases 13, 14 and 15 for the backward kernels, each EP round, each
 rank's every step in phases 19 and 20, and phase 20's EP round under
 autograd, each batcher run of phase 21, each rank's every step and its
-batcher run in phase 22) zeroes the launch counters
+batcher run in phase 22, each rank's every step in phase 23) zeroes the
+launch counters
 just before it and reads them just after; the ``kernels`` line takes ``moe_gmm``'s
 count from the serve CLI, ``ssm_scan``'s from the fp32 falcon-mamba-7b
 forward, ``flash_attention``'s from the bf16 phi3-mini forward,
@@ -1554,8 +1567,9 @@ def nccl_world_of_one(torch):
 
 
 def expected_collectives(cfg, policy: str, microbatches: int,
-                         n_buckets: int) -> dict:
-    """A step's collectives by kind, from the param tree and the bucket
+                         n_buckets: int, model: int = 1) -> dict:
+    """A step's collectives over the data axes by kind, from the param
+    tree (one of ``model`` model ranks' compute shards) and the bucket
     plan: ``unopt`` all-reduces every leaf per microbatch, ``lc`` once;
     ``afe`` reduce-scatters and all-gathers each FSDP-sharded leaf and
     all-reduces each replicated one and the norm's sums; ``afe_bucket``
@@ -1563,16 +1577,18 @@ def expected_collectives(cfg, policy: str, microbatches: int,
     replicated ones as one bucket and the norm's sums, and all-gathers
     each bucket's sharded params by dtype."""
     from repro_torch.distributed.sharding import (
-        MeshShape, fsdp_layout, mesh_context)
+        MeshShape, fsdp_layout, mesh_context, tp_local_params)
     from repro_torch.models import model as TM
     from repro_torch.sched import FixedCapacity
     from repro_torch.train.train_step import _bucket_bins
     from repro_torch.tree import tree_leaves
 
-    leaves = tree_leaves(TM.param_shapes(cfg))
-    with mesh_context(MeshShape(("data", "model"), (1, 1))):
-        dims = tree_leaves(fsdp_layout(TM.param_shapes(cfg), cfg, 0, 1)
-                           .dims)
+    shapes = TM.param_shapes(cfg)
+    if model > 1:
+        shapes = tp_local_params(shapes, cfg, 0, model)
+    leaves = tree_leaves(shapes)
+    with mesh_context(MeshShape(("data", "model"), (1, model))):
+        dims = tree_leaves(fsdp_layout(shapes, cfg, 0, 1).dims)
     n, ns = len(leaves), sum(d is not None for d in dims)
     out = dict.fromkeys(("all_reduce", "reduce_scatter", "all_gather",
                          "all_to_all", "send_recv"), 0)
@@ -1785,16 +1801,30 @@ def tp_steps(torch, step, params, opt, batch, steps: int,
              dev: str = "cuda") -> dict:
     """``steps`` steps on one batch: losses, gradient norms, skipped steps,
     host-clock step ms (synchronised) and, per step, the kernel launches
-    and the collectives of the data, model and expert axes."""
+    and the collectives of the data, model and expert axes.  On the card
+    also each step's activation memory, ``activation_gb``: the peak
+    allocated during the step less what was allocated just before it
+    (params, optimizer state and the batch excluded; the step's
+    gradients, their accumulators and the saved activations included),
+    and ``max_memory_allocated_gb``, the peak since the caller last reset
+    the peak statistics (the setup) or over any step."""
     out = {"losses": [], "grad_norms": [], "skipped": [], "step_ms": [],
            "launches": [], "collectives": [], "tp_collectives": [],
-           "ep_collectives": []}
+           "ep_collectives": [], "activation_gb": []}
+    peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
     for _ in range(steps):
         zero_counters()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         params, opt, m = step(params, opt, batch)
         if dev == "cuda":
             torch.cuda.synchronize()
+            top = torch.cuda.max_memory_allocated()
+            peak = max(peak, top)
+            out["activation_gb"].append((top - before) / 1e9)
         out["step_ms"].append((time.perf_counter() - t0) * 1e3)
         out["launches"].append(read_counters())
         out["losses"].append(float(m["loss"]))
@@ -1802,6 +1832,7 @@ def tp_steps(torch, step, params, opt, batch, steps: int,
         out["skipped"].append(int(m["nonfinite_skipped"]))
         for k in ("collectives", "tp_collectives", "ep_collectives"):
             out[k].append(m[k])
+    out["max_memory_allocated_gb"] = peak / 1e9
     return out
 
 
@@ -1863,9 +1894,6 @@ def tp_rank_run(torch, rank: int, plan: dict) -> dict:
         torch, get_config(arch, smoke=plan["smoke"]), mesh, seq_len=S,
         global_batch=B, microbatches=mb, lr=1e-4, dev=dev)
     out["bf16"] = tp_steps(torch, step, p, o, batch, steps, dev)
-    if dev == "cuda":
-        out["bf16"]["max_memory_allocated_gb"] = \
-            torch.cuda.max_memory_allocated() / 1e9
     return out
 
 
@@ -1896,9 +1924,6 @@ def ep_rank_run(torch, rank: int, plan: dict) -> dict:
             lr=1e-4, dev=dev, policy=policy)
         res = tp_steps(torch, step, p, o, batch, steps, dev)
         res["local_experts"] = int(p["layers"]["moe"]["w1"].shape[-3])
-        if dev == "cuda":
-            res["max_memory_allocated_gb"] = \
-                torch.cuda.max_memory_allocated() / 1e9
         out.append(res)
         del step, p, o, batch
     return out
@@ -1910,8 +1935,9 @@ def tp_rank(rank: int, store: str, plan: dict, q) -> None:
     tensors through host memory), then :func:`tp_rank_run`
     (:func:`ep_rank_run` for a plan of kind ``"ep"``,
     :func:`tp_serve_rank_run` for one of kind ``"serve"``,
-    :func:`ep_tp_rank_run` for one of kind ``"ep_tp"``); the result or the
-    traceback goes on ``q``."""
+    :func:`ep_tp_rank_run` for one of kind ``"ep_tp"``,
+    :func:`multi_pod_rank_run` for one of kind ``"multi_pod"``); the
+    result or the traceback goes on ``q``."""
     import traceback
 
     sys.path.insert(0, str(SRC))
@@ -1926,7 +1952,9 @@ def tp_rank(rank: int, store: str, plan: dict, q) -> None:
         dist.init_process_group("gloo", init_method=f"file://{store}",
                                 rank=rank, world_size=plan.get("world", 2))
         run = {"ep": ep_rank_run, "serve": tp_serve_rank_run,
-               "ep_tp": ep_tp_rank_run}.get(plan.get("kind"), tp_rank_run)
+               "ep_tp": ep_tp_rank_run,
+               "multi_pod": multi_pod_rank_run}.get(plan.get("kind"),
+                                                    tp_rank_run)
         q.put((rank, run(torch, rank, plan)))
     except BaseException:
         q.put((rank, {"error": traceback.format_exc()}))
@@ -1975,6 +2003,28 @@ def tp_spawn(plan: dict) -> dict:
     return got
 
 
+def tp_expected(cfg, microbatches: int) -> dict:
+    """The model axis's collectives per train step of a MoE config whose
+    experts split over 2 model ranks (E or d_ff; no expert axis), under
+    ``remat``, sequence-parallel (2 divides S).  Per microbatch, ``L``
+    layers: forward, the embedding's reduce-scatter, per layer the two
+    normed inputs' all-gathers and the reduce-scatters of attention's and
+    the experts' outputs, the head input's all-gather and the cross
+    entropy's three all-reduces; the recompute (up to the layer's last
+    saved tensor, before the experts' reduce-scatter) re-issues the two
+    all-gathers and attention's reduce-scatter; backward, each
+    reduce-scatter's gradient all-gathered and each all-gather's
+    reduce-scatter (the embedding's and the head input's too), and the
+    gates' gradient all-reduced per layer: ``6L + 2`` all-gathers, ``5L +
+    2`` reduce-scatters, ``L + 3`` all-reduces.  Per step the norms'
+    partial gradients summed and the gradient norm: two all-reduces."""
+    L, M = cfg.n_layers, microbatches
+    return dict.fromkeys(("all_reduce", "reduce_scatter", "all_gather",
+                          "all_to_all", "send_recv"), 0) | {
+        "all_gather": M * (6 * L + 2), "reduce_scatter": M * (5 * L + 2),
+        "all_reduce": M * (L + 3) + 2}
+
+
 def phase_tp_train(torch, cfg, hymba, card: str) -> list:
     """Tensor parallelism on a ``(data 1, model 2)`` mesh: two processes on
     the one card, gloo, policy ``lc`` (:func:`tp_step_setup`).
@@ -2003,7 +2053,6 @@ def phase_tp_train(torch, cfg, hymba, card: str) -> list:
     one = tp_steps(torch, *tp_step_setup(
         torch, cfg, None, seq_len=1024, global_batch=8, microbatches=2,
         lr=1e-4), 2)
-    one["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     gc.collect()
     torch.cuda.empty_cache()
     plan = {"dev": "cuda", "smoke": False,
@@ -2014,22 +2063,28 @@ def phase_tp_train(torch, cfg, hymba, card: str) -> list:
     got = tp_spawn(plan)
     rows, bad = [], []
     for i, (arch, rep, S, chunk) in enumerate(plan["fp32"]):
-        local = tp_local_config(dataclasses.replace(
-            cfg if arch == cfg.name else hymba, n_layers=2, **rep), 2)
+        c = dataclasses.replace(cfg if arch == cfg.name else hymba,
+                                n_layers=2, **rep)
+        local = tp_local_config(c, 2)
         expect = expected_launches(local, S, 1, chunk)
+        # the model axis's counts are derived for granite's shape only
+        tp_want = tp_expected(c, 1) if c.family == "moe" else None
         for r in range(2):
             row = {"phase": "tp_train", "check": "fp32", "rank": r,
                    "card": card, **got[r]["fp32"][i],
-                   "expected_launches": expect}
+                   "expected_launches": expect,
+                   "expected_tp_collectives": tp_want}
             emit(row)
             rows.append(row)
             gn, g1 = row["grad_norm"], row["one_process_grad_norm"]
             if row["param_max_abs_err"] > 1e-4 or \
                     row["m_max_err_over_max"] > 1e-4 or \
-                    abs(gn - g1) > 1e-4 * g1 or row["launches"] != expect:
+                    abs(gn - g1) > 1e-4 * g1 or row["launches"] != expect \
+                    or tp_want not in (None, row["tp_collectives"]):
                 bad.append(f"fp32 {arch} {rep} rank {r}")
     local = tp_local_config(cfg, 2)
     expect = expected_launches(local, 1024, 2)
+    tp_want = tp_expected(cfg, 2)
     for r in range(2):
         b = got[r]["bf16"]
         row = {"phase": "tp_train", "check": "bf16", "rank": r,
@@ -2044,16 +2099,20 @@ def phase_tp_train(torch, cfg, hymba, card: str) -> list:
                "one_process_step_ms": one["step_ms"],
                "one_process_max_memory_allocated_gb":
                    one["max_memory_allocated_gb"],
-               "expected_launches_per_step": expect}
+               "one_process_activation_gb": one["activation_gb"],
+               "expected_launches_per_step": expect,
+               "expected_tp_collectives_per_step": tp_want}
         emit(row)
         rows.append(row)
         for x, y in zip(b["losses"] + b["grad_norms"],
                         one["losses"] + one["grad_norms"]):
             if not math.isfinite(x) or abs(x - y) > 2e-2 * abs(y):
                 bad.append(f"bf16 rank {r}: {x} against {y}")
-        if sum(b["skipped"]) or any(n != expect for n in b["launches"]):
+        if sum(b["skipped"]) or any(n != expect for n in b["launches"]) \
+                or any(n != tp_want for n in b["tp_collectives"]):
             bad.append(f"bf16 rank {r}: skipped {b['skipped']}, launches "
-                       f"{b['launches']}")
+                       f"{b['launches']}, model axis "
+                       f"{b['tp_collectives']}")
     if bad:
         raise AssertionError(f"tp_train: {bad}")
     return rows
@@ -2200,8 +2259,6 @@ def phase_ep_train(torch, cfg, card: str, T: int = 4096,
         one[cf] = tp_steps(torch, *tp_step_setup(
             torch, c, None, seq_len=1024, global_batch=8, microbatches=2,
             lr=1e-4), steps)
-        one[cf]["max_memory_allocated_gb"] = \
-            torch.cuda.max_memory_allocated() / 1e9
         gc.collect()
         torch.cuda.empty_cache()
     plan = {"kind": "ep", "dev": "cuda", "smoke": False,
@@ -2630,6 +2687,10 @@ def phase_tp_serve(torch, cfg, hymba, card: str, one: dict) -> dict:
     if len(whole) != len(ref) or max(err) > 1e-4:
         bad.append(f"prefill on the ranks vs one process: {err}")
     local = tp_local_config(cfg, 2)
+    # per decode step (S 1, whole activations) the embedding's and every
+    # layer's two all-reduces; per prefill round (C 32, sequence-parallel)
+    # the embedding's and every layer's two reduce-scatters and the two
+    # normed inputs' and the head input's all-gathers
     per = 1 + 2 * cfg.n_layers
     zero = dict.fromkeys(("all_reduce", "reduce_scatter", "all_gather",
                           "all_to_all", "send_recv"), 0)
@@ -2673,8 +2734,9 @@ def phase_tp_serve(torch, cfg, hymba, card: str, one: dict) -> dict:
             bad.append(f"serve rank {r}: {srv['finished']}/16 finished, "
                        f"{gen} tokens, ranks alike "
                        f"{row['tokens_equal_other_rank']}")
-        if srv["tp_collectives"] != dict(zero, all_reduce=per * (
-                n_pre + n_dec), all_gather=n_dec) or \
+        if srv["tp_collectives"] != dict(
+                zero, all_reduce=per * n_dec, reduce_scatter=per * n_pre,
+                all_gather=n_dec + per * n_pre) or \
                 srv["dp_collectives"] != dict(zero, all_gather=n_dec):
             bad.append(f"serve rank {r}: collectives")
         if [len(shapes[k]) for k in ("prefill", "decode")] != [1, 1]:
@@ -2692,17 +2754,28 @@ EP_TP_MESH = "expert 2, data 1, model 2"
 
 
 def ep_tp_expected(cfg, microbatches: int) -> dict:
-    """Per train step under ``remat`` on ``(expert 2, data 1, model 2)``:
-    the model axis's all-reduces (per microbatch the embedding's, the
-    cross entropy's three and the head input's gradient; per layer
-    attention's forward, recompute and input-gradient reduces and the EP
-    round's lane reduce, its recompute and its packed tokens' gradient;
-    the norm's) and the expert axis's collectives, as without a model
-    axis (:func:`ep_expected_collectives`)."""
+    """Per train step under ``remat`` on ``(expert 2, data 1, model 2)``,
+    sequence-parallel: the model axis's collectives and the expert
+    axis's, as without a model axis (:func:`ep_expected_collectives`).
+    Model axis per microbatch, ``L`` layers: forward, the embedding's
+    reduce-scatter, per layer the two normed inputs' all-gathers,
+    attention's reduce-scatter and the EP round's lane all-reduce (its
+    whole result leaves by a slice), the head input's all-gather and the
+    cross entropy's three all-reduces; the recompute (on to the
+    gate-combine's saved input, past the return exchange) re-issues the
+    two all-gathers, attention's reduce-scatter and the lane all-reduce;
+    backward, the slice's and attention's gradients all-gathered, the two
+    gathered inputs' reduce-scattered, the packed tokens' all-reduced,
+    and the embedding's all-gather and the head input's reduce-scatter:
+    ``6L + 2`` all-gathers, ``4L + 2`` reduce-scatters, ``3L + 3``
+    all-reduces.  Per step the norms' partial gradients summed and the
+    gradient norm: two all-reduces."""
+    L, M = cfg.n_layers, microbatches
     zero = dict.fromkeys(("all_reduce", "reduce_scatter", "all_gather",
                           "all_to_all", "send_recv"), 0)
-    return {"tp": dict(zero, all_reduce=microbatches *
-                       (5 + 6 * cfg.n_layers) + 1),
+    return {"tp": dict(zero, all_gather=M * (6 * L + 2),
+                       reduce_scatter=M * (4 * L + 2),
+                       all_reduce=M * (3 * L + 3) + 2),
             "ep": ep_expected_collectives(cfg, microbatches)}
 
 
@@ -2751,8 +2824,6 @@ def ep_tp_rank_run(torch, rank: int, plan: dict) -> dict:
             lr=1e-4, dev=dev, policy=policy)
         res = tp_steps(torch, step, p, o, batch, steps, dev)
         res["local_w1"] = list(p["layers"]["moe"]["w1"].shape)
-        res["max_memory_allocated_gb"] = \
-            torch.cuda.max_memory_allocated() / 1e9
         out["train"].append(res)
         del step, p, o, batch
         gc.collect()
@@ -2844,8 +2915,6 @@ def phase_ep_tp(torch, cfg, card: str, one_rank: dict) -> dict:
         one[cf] = tp_steps(torch, *tp_step_setup(
             torch, c, None, seq_len=S, global_batch=B, microbatches=mb,
             lr=1e-4), steps)
-        one[cf]["max_memory_allocated_gb"] = \
-            torch.cuda.max_memory_allocated() / 1e9
         gc.collect()
         torch.cuda.empty_cache()
     seconds = {"one_process": time.perf_counter() - t0}
@@ -2949,8 +3018,13 @@ def phase_ep_tp(torch, cfg, card: str, one_rank: dict) -> dict:
                            f"collectives {b['collectives']} / "
                            f"{b['tp_collectives']} / {b['ep_collectives']}")
 
-    # (c) the closed batch
-    per = 1 + 2 * cfg.n_layers
+    # (c) the closed batch: per decode step (S 1) the embedding's and every
+    # layer's two all-reduces (attention's, the round's lane reduce); per
+    # prefill round (C 32, sequence-parallel) the embedding's and
+    # attention's reduce-scatters, the lane all-reduces, the two normed
+    # inputs' and the head input's all-gathers
+    L = cfg.n_layers
+    per = 1 + 2 * L
     zero = dict.fromkeys(("all_reduce", "reduce_scatter", "all_gather",
                           "all_to_all", "send_recv"), 0)
     want = one_rank["tokens"]
@@ -2991,8 +3065,10 @@ def phase_ep_tp(torch, cfg, card: str, one_rank: dict) -> dict:
                 srv["local_w1"] != local_w1:
             bad.append(f"serve rank {r}: {srv['finished']}/16 finished, "
                        f"{gen} tokens, ranks alike {alike}")
-        if srv["tp_collectives"] != dict(zero, all_reduce=per * n,
-                                         all_gather=n_dec) or \
+        if srv["tp_collectives"] != dict(
+                zero, all_reduce=per * n_dec + L * n_pre,
+                reduce_scatter=(L + 1) * n_pre,
+                all_gather=n_dec + (2 * L + 1) * n_pre) or \
                 srv["dp_collectives"] != dict(zero, all_gather=n_dec) or \
                 srv["ep_collectives"] != dict(
                     zero, all_to_all=2 * cfg.n_layers * n,
@@ -3004,6 +3080,117 @@ def phase_ep_tp(torch, cfg, card: str, one_rank: dict) -> dict:
         raise AssertionError(f"ep_tp: {bad}")
     return {"rows": rows, "train": at[(0, 0)]["train"],
             "serve": at[(0, 0)]["serve"]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 23: a multi-pod mesh with a model axis
+# ---------------------------------------------------------------------------
+
+MULTI_POD_MESH = "pod 2, data 2, model 2"
+
+
+def multi_pod_rank_run(torch, rank: int, plan: dict) -> dict:
+    """One rank of :func:`phase_multi_pod` on a ``(pod 2, data 2, model
+    2)`` mesh: the ranks of its data-parallel group (``mesh_group`` over
+    ``("pod", "data")``, the 4 ranks that share its model coordinate),
+    then one step of each of ``plan["policies"]`` (:func:`tp_steps`)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.comm import mesh_group
+    from repro_torch.launch.mesh import make_test_mesh
+
+    dev = plan["dev"]
+    mesh = make_test_mesh(pod=2, data=2, model=2, device_type="cpu")
+    cfg = dataclasses.replace(get_config(plan["arch"], smoke=plan["smoke"]),
+                              n_layers=plan["layers"])
+    S, B, mb = plan["bf16"]
+    out = {"data_group": dist.get_process_group_ranks(
+        mesh_group(mesh, ("pod", "data")))}
+    for policy in plan["policies"]:
+        step, p, o, batch = tp_step_setup(
+            torch, cfg, mesh, seq_len=S, global_batch=B, microbatches=mb,
+            lr=1e-4, dev=dev, policy=policy)
+        out[policy] = tp_steps(torch, step, p, o, batch, 1, dev)
+        del step, p, o, batch
+    return out
+
+
+def phase_multi_pod(torch, cfg, card: str, layers: int = 2) -> list:
+    """Fault K's layout: eight processes on the one card over gloo at
+    ``(pod 2, data 2, model 2)`` (:func:`tp_spawn`, a plan of kind
+    ``"multi_pod"``), ``cfg`` (granite) at full width, ``layers`` of its
+    24 layers, bf16, seq 1024, global batch 8 in 2 microbatches (one row
+    per data rank and microbatch), sequence-parallel over the model
+    ranks: one ``afe`` and one ``lc`` step from the same weights and
+    batch as one process's (run here first).  Gates: each rank's data
+    group the 4 ranks of its model coordinate; the mean over the data
+    ranks of the loss (each rank's is over its rows) within 2e-2 relative
+    of the one-process step's (the gradient norm is reported, not gated:
+    the port sizes expert capacity per data rank, ROADMAP fault M); each
+    rank's launches exactly ``expected_launches`` of the rank-local
+    config; the data axes' collectives (over the 4-rank group) those of
+    the policy over one model rank's tree, the model axis's
+    :func:`tp_expected`, none on an expert axis."""
+    from repro_torch.distributed.sharding import tp_local_config
+    from repro_torch.train.train_step import StepConfig
+
+    c = dataclasses.replace(cfg, n_layers=layers)
+    S, B, mb = 1024, 8, 2
+    policies = ("afe", "lc")
+    t0 = time.perf_counter()
+    one = {pol: tp_steps(torch, *tp_step_setup(
+        torch, c, None, seq_len=S, global_batch=B, microbatches=mb, lr=1e-4,
+        policy=pol), 1) for pol in policies}
+    seconds = {"one_process": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    got = tp_spawn({"kind": "multi_pod", "world": 8, "dev": "cuda",
+                    "smoke": False, "arch": cfg.name, "layers": layers,
+                    "policies": policies, "bf16": (S, B, mb)})
+    seconds["ranks"] = time.perf_counter() - t0
+    emit({"phase": "multi_pod", "check": "seconds", **seconds})
+    expect = expected_launches(tp_local_config(c, 2), S, mb)
+    tp_want = tp_expected(c, mb)
+    rows, bad = [], []
+    for r in range(8):
+        want = [r % 2 + 2 * k for k in range(4)]
+        if got[r]["data_group"] != want:
+            bad.append(f"rank {r}: data group {got[r]['data_group']}")
+    for policy in policies:
+        data_want = expected_collectives(c, policy, mb,
+                                         StepConfig().n_buckets, model=2)
+        losses = [got[r][policy]["losses"][0] for r in range(8)]
+        loss = sum(losses[0::2]) / 4        # model rank 0 of each data rank
+        ref = one[policy]
+        for r in range(8):
+            b = got[r][policy]
+            row = {"phase": "multi_pod", "check": "bf16_step", "rank": r,
+                   "card": card, "arch": cfg.name, "layers": layers,
+                   "mesh": MULTI_POD_MESH, "backend": "gloo",
+                   "policy": policy, "seq_len": S, "global_batch": B,
+                   "microbatches": mb, "data_group": got[r]["data_group"],
+                   **b, "mean_loss_over_data_ranks": loss,
+                   "one_process_losses": ref["losses"],
+                   "one_process_grad_norms": ref["grad_norms"],
+                   "one_process_step_ms": ref["step_ms"],
+                   "expected_launches_per_step": expect,
+                   "expected_collectives_per_step": data_want,
+                   "expected_tp_collectives_per_step": tp_want}
+            emit(row)
+            rows.append(row)
+            x, y = loss, ref["losses"][0]
+            if not math.isfinite(x) or abs(x - y) > 2e-2 * abs(y):
+                bad.append(f"{policy} rank {r}: {x} against {y}")
+            if b["skipped"] != [0] or b["launches"] != [expect] or \
+                    b["collectives"] != [data_want] or \
+                    b["tp_collectives"] != [tp_want] or \
+                    b["ep_collectives"] != [{}]:
+                bad.append(f"{policy} rank {r}: skipped {b['skipped']}, "
+                           f"launches {b['launches']}, collectives "
+                           f"{b['collectives']} / {b['tp_collectives']}")
+    if bad:
+        raise AssertionError(f"multi_pod: {bad}")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -3252,6 +3439,9 @@ def main() -> int:
     ep_tp_moe_bwd = timed(phase_moe_gmm_bwd, torch, g22,
                           (("bfloat16", (1280,)),))[0]
     ep_tp = timed(phase_ep_tp, torch, cfg, smi, tp_serve["one_rank"])
+    # a multi-pod mesh with a model axis (phase 23): eight gloo ranks at
+    # (pod 2, data 2, model 2), granite at full width, 2 of its 24 layers
+    timed(phase_multi_pod, torch, cfg, smi)
 
     moe_main = next(r for r in moe_rows
                     if r["C"] == 8 and r["dtype"] == "bfloat16")

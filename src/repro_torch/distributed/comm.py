@@ -12,14 +12,29 @@ ranks (:func:`model_comm`) whose counts it returns apart, as
 (:func:`expert_comm`), as ``metrics["ep_collectives"]``; the EP round
 makes one per round when it is not given one.
 
-Tensor parallelism (the ``"model"`` mesh axis) is Megatron's: the
-activations are whole on every model rank, a column-parallel matmul takes
-them through :func:`copy_to_tp` (identity forward, all-reduce of the
-input's gradient backward) and a row-parallel matmul's partial sums leave
-through :func:`reduce_from_tp` (all-reduce forward, identity backward).
-Each function keeps its :class:`Collectives` in the autograd context, so
-a backward (on the autograd engine's thread) and a rematerialised forward
-issue and count through the same object as the forward did.
+Tensor parallelism (the ``"model"`` mesh axis) is Megatron's with
+sequence parallelism, as the reference's ``shard_act`` lays it out:
+between layers a model rank holds rows ``[j·S/m, (j+1)·S/m)`` of the
+``(B, S, d)`` residual stream whenever ``m`` divides S
+(:func:`~repro_torch.distributed.sharding.seq_sharded`).  A layer's
+normed input is all-gathered over the sequence before its column-parallel
+matmuls (:func:`gather_from_sp`: the gradient's partial sums
+reduce-scattered back) and its row-parallel partial sums leave by a
+reduce-scatter over the sequence (:func:`reduce_scatter_to_sp`: the
+gradient all-gathered).  A consumer of the gathered rows that computes
+alike on every model rank (attention whose heads do not split, MoE
+routing) reads them through :func:`keep_block_grad`, so that its whole
+gradient counts once in that reduce-scatter; attention that runs whole
+leaves by taking this rank's block (:func:`slice_to_sp`).  Where ``m``
+does not divide S (ragged lengths, decode at S = 1) the activations are
+whole on every model rank: a column-parallel matmul takes them through
+:func:`copy_to_tp` (identity forward, all-reduce of the input's gradient
+backward) and a row-parallel matmul's partial sums leave through
+:func:`reduce_from_tp` (all-reduce forward, identity backward);
+:func:`enter_tp` / :func:`leave_tp` pick the pair.  Each function keeps
+its :class:`Collectives` in the autograd context, so a backward (on the
+autograd engine's thread) and a rematerialised forward issue and count
+through the same object as the forward did.
 
 Expert parallelism (the ``"expert"`` axis) under autograd is the
 counterpart of what ``jax.grad`` does to the reference's ``shard_map``:
@@ -42,6 +57,7 @@ callers divide.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -53,25 +69,50 @@ KINDS = ("all_reduce", "reduce_scatter", "all_gather", "all_to_all",
          "send_recv")
 
 
+def axis_groups(mesh, axes) -> list:
+    """The rank lists of the groups over the mesh axes ``axes``: one per
+    coordinate of the other axes (row-major), each the ranks that share
+    that coordinate, row-major over ``axes`` (so ascending, and a rank's
+    place in its list is its index over ``axes``).  Reads only the mesh's
+    names, sizes and (for a ``DeviceMesh``) its rank layout: pure
+    arithmetic, no process group."""
+    axes = [a for a in mesh.mesh_dim_names if a in axes]
+    ranks = getattr(mesh, "mesh", None)
+    if ranks is None:
+        ranks = torch.arange(math.prod(mesh.shape)).reshape(
+            tuple(mesh.shape))
+    names = list(mesh.mesh_dim_names)
+    others = [names.index(a) for a in names if a not in axes]
+    inner = [names.index(a) for a in axes]
+    n = math.prod(ranks.shape[d] for d in inner)
+    return ranks.permute(others + inner).reshape(-1, n).tolist()
+
+
 def mesh_group(mesh, axes):
     """The process group over the mesh axes ``axes`` (one name or a tuple,
     e.g. the data-parallel ``("pod", "data")``): the group of the one such
-    axis larger than 1 (the first present one when none is), or the
-    default group when several are wide and together span the world."""
+    axis larger than 1 (the first present one when none is), the default
+    group when several are wide and together span the world, else the
+    group of the ranks that share this rank's coordinates on every other
+    axis (:func:`axis_groups`).  Every rank creates every such group, in
+    the same order, as ``torch.distributed`` requires; they are made once
+    per mesh and kept on it."""
     axes = (axes,) if isinstance(axes, str) else tuple(axes)
     sizes = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
     present = [a for a in axes if a in sizes]
-    wide = [a for a in present if sizes[a] > 1]
+    wide = tuple(a for a in present if sizes[a] > 1)
     if len(wide) <= 1:
         return mesh.get_group(wide[0] if wide else present[0])
-    n = 1
-    for a in wide:
-        n *= sizes[a]
-    if n != dist.get_world_size():
-        raise NotImplementedError(
-            f"a group over the mesh axes {wide}, which do not span the "
-            "world")
-    return dist.group.WORLD
+    if math.prod(sizes[a] for a in wide) == dist.get_world_size():
+        return dist.group.WORLD
+    cache = mesh.__dict__.setdefault("_repro_axis_groups", {})
+    if wide not in cache:
+        me = dist.get_rank()
+        for ranks in axis_groups(mesh, wide):
+            group = dist.new_group(ranks)
+            if me in ranks:
+                cache[wide] = group
+    return cache[wide]
 
 
 class Collectives:
@@ -221,6 +262,123 @@ def share_kv(w: torch.Tensor, tp: Optional[Collectives], head: int,
     """``w``, one KV head's weight that the ranks reading head ``head`` of
     ``n_heads`` hold alike; its gradient summed over those ranks."""
     return w if tp is None else _ShareKV.apply(w, tp, head, n_heads)
+
+
+# ---------------------------------------------------------------------------
+# Sequence parallelism on the model axis (the reference's shard_act)
+# ---------------------------------------------------------------------------
+#
+# Collectives.all_gather / reduce_scatter work on the leading dim; the
+# sequence is dim 1 of (B, S, ...), so each function moves it first and
+# back (the ranks' blocks stay in rank order).
+
+
+def _seq(t: torch.Tensor) -> torch.Tensor:
+    return t.transpose(0, 1)
+
+
+class _GatherFromSP(torch.autograd.Function):
+    """The ranks' sequence blocks all-gathered; backward, the gradient's
+    partial sums reduce-scattered to this rank's block."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return _seq(tp.all_gather(_seq(x))).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _seq(ctx.tp.reduce_scatter(_seq(g))), None
+
+
+class _ReduceScatterToSP(torch.autograd.Function):
+    """Partial sums summed over the model ranks, this rank's sequence
+    block kept; backward, the blocks' gradients all-gathered."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return _seq(tp.reduce_scatter(_seq(x))).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _seq(ctx.tp.all_gather(_seq(g))), None
+
+
+class _KeepBlockGrad(torch.autograd.Function):
+    """Identity forward; backward, the gradient with every row outside
+    this rank's sequence block zeroed, no collective."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = g.shape[1] // ctx.tp.size
+        lo = ctx.tp.rank * n
+        out = torch.zeros_like(g)
+        out[:, lo:lo + n] = g[:, lo:lo + n]
+        return out, None
+
+
+def gather_from_sp(x: torch.Tensor, tp: Collectives) -> torch.Tensor:
+    """The whole sequence from each model rank's block ``x`` (B, S/m,
+    ...): one all-gather; backward, one reduce-scatter of the gradient,
+    which sums the partial gradients of the column-parallel consumers."""
+    return _GatherFromSP.apply(x, tp)
+
+
+def reduce_scatter_to_sp(x: torch.Tensor, tp: Collectives) -> torch.Tensor:
+    """Leave the tensor-parallel region onto the sequence blocks: ``x``'s
+    partial sums (B, S, ...) summed over the model ranks, this rank's
+    block kept; backward, one all-gather."""
+    return _ReduceScatterToSP.apply(x, tp)
+
+
+def slice_to_sp(x: torch.Tensor, tp: Collectives) -> torch.Tensor:
+    """This rank's block of ``x`` (B, S, ...), which every model rank
+    holds alike (an input, or what a layer that runs whole computed):
+    forward a slice; backward, one all-gather of the blocks' gradients."""
+    return _seq(_SliceToEP.apply(_seq(x), tp))
+
+
+def keep_block_grad(x: torch.Tensor, tp: Collectives) -> torch.Tensor:
+    """``x``, gathered rows read by a consumer that computes alike on every
+    model rank: its gradient there is whole and alike, so only this
+    rank's block of it is passed on, and the reduce-scatter of
+    :func:`gather_from_sp` counts it once."""
+    return _KeepBlockGrad.apply(x, tp)
+
+
+def enter_tp(x: torch.Tensor, tp: Optional[Collectives], *,
+             split: bool = True, gathered: bool = False) -> torch.Tensor:
+    """A layer's input ``x`` on the model ranks of ``tp``: ``gathered``
+    when the caller all-gathered it from the sequence blocks
+    (:func:`gather_from_sp`, whose backward sums the partial gradients),
+    else whole on every rank.  ``split``: the consumer is column-parallel
+    (its gradient partial on each rank); else it computes alike on every
+    rank.  The identity without ``tp``."""
+    if tp is None:
+        return x
+    if gathered:
+        return x if split else keep_block_grad(x, tp)
+    return copy_to_tp(x, tp) if split else x
+
+
+def leave_tp(y: torch.Tensor, tp: Optional[Collectives], *,
+             split: bool = True, sp: bool = False) -> torch.Tensor:
+    """A layer's output ``y`` (B, S, ...) back onto the residual stream:
+    with ``sp`` this rank's sequence block (partial sums reduce-scattered
+    where ``split``, else the block of a whole result), else whole
+    (partial sums all-reduced where ``split``).  The identity without
+    ``tp``."""
+    if tp is None:
+        return y
+    if sp:
+        return reduce_scatter_to_sp(y, tp) if split else slice_to_sp(y, tp)
+    return reduce_from_tp(y, tp) if split else y
 
 
 # ---------------------------------------------------------------------------

@@ -27,9 +27,17 @@ batch and, under the ``afe`` policies, the optimizer state
 the EP round (:mod:`repro_torch.ep`), and in training each expert rank
 holds its ``E/S`` experts and their optimizer state
 (:func:`tp_local_params` with ``axis="expert"``: the reference's
-``(EXPERT, fa, M)`` spec), every other leaf whole; the ``"model"`` axis is Megatron
-tensor parallelism inside the layers (:mod:`repro_torch.distributed.comm`'s
-``copy_to_tp`` / ``reduce_from_tp``).  On both (the reference's
+``(EXPERT, fa, M)`` spec), every other leaf whole; the ``"model"`` axis
+is Megatron tensor parallelism inside the layers
+(:mod:`repro_torch.distributed.comm`), with the reference's sequence
+parallelism between them (:func:`shard_act`): a model rank holds its
+``S/m`` rows of the residual stream where ``m`` divides S, all-gathered
+into each layer and reduce-scattered out of it, so the norms run on
+those rows and their gradients are partial sums over the model ranks
+(:func:`sp_summed`); where ``m`` does not divide S, and in decode
+(S = 1), the activations are whole on every model rank, entering each
+layer through ``copy_to_tp`` and leaving through ``reduce_from_tp``.  On
+both (the reference's
 ``(expert, data, model)`` production layout, ``axis=("expert",
 "model")``) an expert rank's ``E/S`` experts split their d_ff over the
 model ranks, as the ``(EXPERT, fa, M)`` spec stores them, and the rest is
@@ -127,13 +135,28 @@ def ep_takes_experts(cfg, S: int) -> bool:
         cfg.n_experts > 0 and cfg.n_experts % S == 0
 
 
-def shard_act(x):
-    """The reference's sequence-parallel activation constraint: the
-    identity.  On a model axis the port keeps activations whole on every
-    model rank (Megatron without sequence parallelism), so a rank holds
-    ``m`` times the reference's sequence-sharded residual stream (ROADMAP
-    Queue 1: sequence-parallel ``shard_act``)."""
-    return x
+def seq_sharded(tp, S: int) -> bool:
+    """The reference's rule for the sequence over the model axis: whether
+    a ``(B, S, d)`` activation is held as ``S/m`` rows per model rank, for
+    the model ranks' ``Collectives`` ``tp`` (None without a model axis):
+    ``m > 1`` divides S.  Ragged lengths and decode (S = 1) stay whole."""
+    return tp is not None and tp.size > 1 and S % tp.size == 0
+
+
+def shard_act(x, tp):
+    """The reference's sequence-parallel activation constraint on a
+    tensor that every model rank holds whole (``enc_frames``,
+    ``vis_embed``): this rank's rows ``[j·S/m, (j+1)·S/m)`` where
+    :func:`seq_sharded`, else ``x``.  (The residual stream reaches its
+    blocks from the vocab-parallel embedding's reduce-scatter, and the
+    batch is this rank's rows over the data axes already.)  Sharding the
+    sequence bounds the remat-saved layer inputs; the reference's
+    docstring gives qwen2.5-32b train_4k at 42 GB per device without it
+    and 2.6 GB with it."""
+    if not seq_sharded(tp, x.shape[1]):
+        return x
+    from .comm import slice_to_sp   # comm imports this module
+    return slice_to_sp(x, tp)
 
 
 def shard_logits(x):
@@ -616,6 +639,35 @@ def tp_owned(params, cfg, rank, size, axis="model"):
         return a and b
 
     return both(*flags)
+
+
+#: the norms' leaves: their ``scale`` and ``bias`` see a rank's rows only
+_NORMS = ("ln1", "ln2", "lnx", "final_norm", "enc_norm")
+
+
+def sp_summed(params, m: int, seq: int, enc_seq: int = 0):
+    """Per leaf, whether its gradient is partial on each of ``m`` model
+    ranks under sequence parallelism, and is summed over them: the
+    leaves that act on the residual stream row by row outside the
+    tensor-parallel region — the norms' ``scale`` and ``bias`` and the
+    MLP's ``b2``, added after its exit — in the stacks whose rows shard
+    (:func:`seq_sharded`): the decoder side at sequence length ``seq``,
+    whisper's encoder and ``enc_norm`` at ``enc_seq`` frames."""
+    dec, enc = (m > 1 and n > 0 and n % m == 0 for n in (seq, enc_seq))
+
+    def fn(path):
+        keys = path.strip("/").split("/")
+        if not (enc if keys[0] in ("enc_layers", "enc_norm") else dec):
+            return False
+        parent = keys[-2] if len(keys) > 1 else ""
+        return parent in _NORMS or (keys[-1] == "b2" and "mlp" in keys)
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, f"{path}/{k}") for k, v in node.items()}
+        return fn(path)
+
+    return walk(params, "")
 
 
 def ep_summed(params, cfg, size: int):

@@ -41,7 +41,11 @@ reference gathers each expert rank's experts whole into its
 ``shard_map``; here each model rank computes with its ``d_ff/m`` slice
 of them (the storage layout is the compute layout), and the lane
 results are summed over the model ranks before the return exchange
-(``tp=``).
+(``tp=``).  Under sequence parallelism the round keeps this inside:
+``models.moe.moe_apply`` hands it the token matrix gathered from the
+model ranks' sequence blocks (the reference's ``shard_map`` takes ``x``
+replicated over ``"model"``), only this rank's block of its gradient
+passed back, and takes this rank's sequence block of the whole result.
 
 AFE is the synchronization story: the whole round is one bulk step with
 a single logical barrier.  :func:`ep_round` runs each round under a DCAFE

@@ -15,7 +15,26 @@ from __future__ import annotations
 
 from torch.distributed.device_mesh import init_device_mesh
 
-from ..distributed.sharding import EXPERT_AXIS
+from ..distributed.sharding import EXPERT_AXIS, MeshShape
+
+
+def production_mesh_shape(*, multi_pod: bool = False,
+                          expert: int = 0) -> MeshShape:
+    """The axis names and sizes of :func:`make_production_mesh`, without
+    a process group (what the spec rules and ``comm.axis_groups``
+    read)."""
+    data = 16
+    if expert:
+        if data % expert:
+            raise ValueError(
+                f"expert axis {expert} must divide the data axis {data}")
+        shape, axes = (expert, data // expert, 16), \
+            (EXPERT_AXIS, "data", "model")
+    else:
+        shape, axes = (data, 16), ("data", "model")
+    if multi_pod:
+        shape, axes = (2,) + shape, ("pod",) + axes
+    return MeshShape(axes, shape)
 
 
 def make_production_mesh(*, multi_pod: bool = False, expert: int = 0,
@@ -23,19 +42,9 @@ def make_production_mesh(*, multi_pod: bool = False, expert: int = 0,
     """``expert > 0`` carves an expert-parallel axis out of the *data*
     axis (16 must divide by it): axes ``("expert", data/expert,
     "model")``, with a leading ``"pod"`` when multi-pod."""
-    data = 16
-    if expert:
-        if data % expert:
-            raise ValueError(
-                f"expert axis {expert} must divide the data axis {data}")
-        shape = (2, expert, data // expert, 16) if multi_pod else \
-            (expert, data // expert, 16)
-        axes = ("pod", EXPERT_AXIS, "data", "model") if multi_pod else \
-            (EXPERT_AXIS, "data", "model")
-        return init_device_mesh(device_type, shape, mesh_dim_names=axes)
-    shape = (2, data, 16) if multi_pod else (data, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+    shape = production_mesh_shape(multi_pod=multi_pod, expert=expert)
+    return init_device_mesh(device_type, shape.shape,
+                            mesh_dim_names=shape.mesh_dim_names)
 
 
 def make_test_mesh(data: int = 2, model: int = 2, pod: int = 0,

@@ -8,6 +8,13 @@ self attention, then cross attention to the encoder output ``ctx``) and
 ``cross`` (the vision-language model's cross layer: cross attention to
 the un-normed vision embeddings ``ctx`` in place of self attention)
 kinds.  Caches are updated IN PLACE.
+
+With sequence parallelism (``sp``: a model axis whose size divides the
+sequence, ``distributed.sharding.seq_sharded``) ``x`` is this model
+rank's block of rows: each norm runs on the block, its output is
+all-gathered once (``comm.gather_from_sp``) and read by every sublayer
+that takes it — in the ``hybrid`` kind attention and the mamba heads
+alike — and each sublayer's output comes back as this rank's block.
 """
 
 from __future__ import annotations
@@ -16,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from ..distributed.comm import copy_to_tp, reduce_from_tp
+from ..distributed.comm import copy_to_tp, gather_from_sp, reduce_from_tp
 from . import layers as L
 from . import moe as M
 from . import ssm as S
@@ -42,39 +49,53 @@ def layer_init(gen: torch.Generator, cfg, dtype, kind: str) -> dict:
 
 
 def _ffn(p: dict, cfg, h: torch.Tensor, kind: str, tp=None,
-         ep=None) -> torch.Tensor:
+         ep=None, sp: bool = False) -> torch.Tensor:
     if kind == "moe":
-        return M.moe_apply(p["moe"], cfg, h, tp=tp, ep=ep)
-    return L.mlp_apply(p["mlp"], h, cfg.act, tp)
+        return M.moe_apply(p["moe"], cfg, h, tp=tp, ep=ep, sp=sp)
+    return L.mlp_apply(p["mlp"], h, cfg.act, tp, sp)
+
+
+def _norm(p: dict, x: torch.Tensor, cfg, tp, sp: bool) -> torch.Tensor:
+    """The pre-norm of a sublayer: with ``sp`` on this rank's rows, then
+    all-gathered into the whole sequence the sublayer reads."""
+    h = L.norm_apply(p, x, cfg.norm)
+    return gather_from_sp(h, tp) if sp else h
 
 
 def layer_apply(p: dict, cfg, x: torch.Tensor, kind: str, *,
                 ctx: Optional[torch.Tensor] = None,
                 causal: bool = True, schedule: str = "masked",
                 q_chunk: int = 1024, k_chunk: int = 1024,
-                ssm_chunk: int = 256, tp=None, ep=None) -> torch.Tensor:
+                ssm_chunk: int = 256, tp=None, ep=None, sp: bool = False,
+                ctx_sp: bool = False) -> torch.Tensor:
     """One block forward (whole sequence); ``ctx`` (B, T, d) is what the
     ``dec`` and ``cross`` kinds attend to.  ``tp``: a model-axis
     ``Collectives`` when ``p`` is one model rank's compute shards; ``ep``:
-    an expert-axis one when the MoE layer takes the EP round."""
-    h = L.norm_apply(p["ln1"], x, cfg.norm)
+    an expert-axis one when the MoE layer takes the EP round.  ``sp``:
+    ``x`` is this model rank's block of the sequence (the result is too);
+    ``ctx_sp``: ``ctx`` is this rank's block of the context."""
+    h = _norm(p["ln1"], x, cfg, tp, sp)
     if kind == "ssm":
-        return x + S.ssm_apply(p["ssm"], cfg, h, chunk=ssm_chunk, tp=tp)
-    akw = dict(schedule=schedule, q_chunk=q_chunk, k_chunk=k_chunk, tp=tp)
+        return x + S.ssm_apply(p["ssm"], cfg, h, chunk=ssm_chunk, tp=tp,
+                               sp=sp)
+    akw = dict(schedule=schedule, q_chunk=q_chunk, k_chunk=k_chunk, tp=tp,
+               sp=sp)
     if kind == "cross":
-        a = L.attn_apply(p["attn"], cfg, h, kv_src=ctx, causal=False, **akw)
+        a = L.attn_apply(p["attn"], cfg, h, kv_src=ctx, kv_sp=ctx_sp,
+                         causal=False, **akw)
     else:
         a = L.attn_apply(p["attn"], cfg, h, causal=causal, **akw)
     if kind == "hybrid":
-        a = (a + S.ssm_apply(p["ssm"], cfg, h, chunk=ssm_chunk, tp=tp)) \
-            * 0.5
+        # the same gathered h feeds the mamba heads
+        a = (a + S.ssm_apply(p["ssm"], cfg, h, chunk=ssm_chunk, tp=tp,
+                             sp=sp)) * 0.5
     x = x + a
     if kind == "dec":
-        h = L.norm_apply(p["lnx"], x, cfg.norm)
-        x = x + L.attn_apply(p["cross"], cfg, h, kv_src=ctx, causal=False,
-                             **akw)
-    h = L.norm_apply(p["ln2"], x, cfg.norm)
-    return x + _ffn(p, cfg, h, kind, tp, ep)
+        h = _norm(p["lnx"], x, cfg, tp, sp)
+        x = x + L.attn_apply(p["cross"], cfg, h, kv_src=ctx, kv_sp=ctx_sp,
+                             causal=False, **akw)
+    h = _norm(p["ln2"], x, cfg, tp, sp)
+    return x + _ffn(p, cfg, h, kind, tp, ep, sp)
 
 
 def layer_decode_apply(p: dict, cfg, x: torch.Tensor, cache: dict,
@@ -133,17 +154,20 @@ def layer_decode_apply(p: dict, cfg, x: torch.Tensor, cache: dict,
 
 
 def layer_prefill_apply(p: dict, cfg, x: torch.Tensor, cache: dict,
-                        cache_index, count, kind: str, tp=None, ep=None):
+                        cache_index, count, kind: str, tp=None, ep=None,
+                        sp: bool = False):
     """One block over a ``(B, C)`` token span (chunked prefill); the
     layer's cache is updated IN PLACE.  Returns ``(x, cache)``.  ``tp``
-    and ``ep`` as in :func:`layer_decode_apply`."""
+    and ``ep`` as in :func:`layer_decode_apply`; ``sp`` as in
+    :func:`layer_apply` (the K/V written to the cache are the whole
+    chunk's)."""
     if kind not in ("dense", "moe"):
         raise NotImplementedError(
             f"span prefill is only defined for dense/moe blocks, "
             f"not kind={kind!r}")
-    h = L.norm_apply(p["ln1"], x, cfg.norm)
+    h = _norm(p["ln1"], x, cfg, tp, sp)
     a, _, _ = L.attn_prefill_apply(p["attn"], cfg, h, cache, cache_index,
-                                   count, tp)
+                                   count, tp, sp)
     x = x + a
-    h = L.norm_apply(p["ln2"], x, cfg.norm)
-    return x + _ffn(p, cfg, h, kind, tp, ep), cache
+    h = _norm(p["ln2"], x, cfg, tp, sp)
+    return x + _ffn(p, cfg, h, kind, tp, ep, sp), cache

@@ -16,8 +16,12 @@ dh)`` caches).  Differences from the reference:
   :func:`cross_decode_apply` and :func:`mlp_apply` take one model rank's
   compute shards (``distributed.sharding.tp_local_params``) and a ``tp``
   :class:`~repro_torch.distributed.comm.Collectives`, and run Megatron's
-  column-parallel / row-parallel split with one all-reduce after the
-  row-parallel matmul (and one of the input's gradient in the backward).
+  column-parallel / row-parallel split.  With ``sp`` (sequence
+  parallelism) their input is the whole sequence that the caller
+  all-gathered from the model ranks' blocks and their output leaves by a
+  reduce-scatter onto this rank's block; without it the input is whole
+  on every rank and the output is all-reduced (and the input's gradient
+  in the backward).
 """
 
 from __future__ import annotations
@@ -27,7 +31,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..distributed.comm import copy_to_tp, reduce_from_tp, share_kv
+from ..distributed.comm import (
+    copy_to_tp, enter_tp, gather_from_sp, leave_tp, reduce_from_tp,
+    share_kv,
+)
 from ..distributed.sharding import attn_split
 from ..kernels.flash_attention.ops import flash_attention_op
 
@@ -126,16 +133,19 @@ def mlp_init(gen, d: int, f: int, act: str, dtype) -> dict:
             "b2": torch.zeros((d,), dtype=dtype, device=gen.device)}
 
 
-def mlp_apply(p: dict, x: torch.Tensor, act: str, tp=None) -> torch.Tensor:
+def mlp_apply(p: dict, x: torch.Tensor, act: str, tp=None,
+              sp: bool = False) -> torch.Tensor:
     """The MLP; with ``tp`` (a model-axis ``Collectives``) ``p`` holds this
     rank's columns of ``w1``/``w3``/``b1`` and rows of ``w2``, whose
-    partial products are all-reduced before ``b2`` is added."""
-    x = copy_to_tp(x, tp)
+    partial products are all-reduced (with ``sp``, ``x`` gathered from the
+    sequence blocks: reduce-scattered onto this rank's block) before
+    ``b2`` is added."""
+    x = enter_tp(x, tp, gathered=sp)
     if act == "swiglu":
-        return reduce_from_tp((F.silu(x @ p["w1"]) * (x @ p["w3"]))
-                              @ p["w2"], tp)
+        return leave_tp((F.silu(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"],
+                        tp, sp=sp)
     h = F.gelu(x @ p["w1"] + p["b1"], approximate="tanh")
-    return reduce_from_tp(h @ p["w2"], tp) + p["b2"]
+    return leave_tp(h @ p["w2"], tp, sp=sp) + p["b2"]
 
 
 # ---------------------------------------------------------------------------
@@ -207,11 +217,12 @@ def tp_heads(p: dict, cfg, tp) -> tuple:
 def attn_apply(
     p: dict, cfg, x: torch.Tensor, *,
     kv_src: Optional[torch.Tensor] = None,
+    kv_sp: bool = False,
     causal: bool = True,
     positions: Optional[torch.Tensor] = None,
     schedule: str = "masked",
     q_chunk: int = 1024, k_chunk: int = 1024,
-    tp=None,
+    tp=None, sp: bool = False,
 ) -> torch.Tensor:
     """Whole-sequence attention through the flash-attention kernel: self
     attention, or cross attention to ``kv_src`` (B, T, d), which gives K
@@ -227,15 +238,28 @@ def attn_apply(
     (the compute layout replicates it, the storage specs' column shards
     gathered) and the layer runs whole on every rank with no collective.
 
+    With ``sp`` ``x`` is the whole sequence that the caller all-gathered
+    from the model ranks' blocks, and the output is this rank's block:
+    ``wo``'s partial product reduce-scattered, or where the layer runs
+    whole its result sliced (its gradient all-gathered, and only this
+    rank's block of its input's gradient passed back, so that the
+    gather's reduce-scatter does not sum ``m`` equal copies).  ``kv_sp``:
+    ``kv_src`` is this rank's block of the context, gathered here.
+
     ``schedule``, ``q_chunk`` and ``k_chunk`` are kept for signature
     parity with the reference and ignored: the kernel bounds each query
     tile's key loop to the blocks that meet the causal triangle or the
     window band, which is the reference's "tri"/"window" schedule."""
     B, S, d = x.shape
     h = cfg.head_dim
-    tp, wk, wv = tp_heads(p, cfg, tp)
-    x = copy_to_tp(x, tp)
-    src = x if kv_src is None else copy_to_tp(kv_src, tp)
+    atp, wk, wv = tp_heads(p, cfg, tp)
+    split = atp is not None
+    x = enter_tp(x, tp, split=split, gathered=sp)
+    src = x
+    if kv_src is not None:
+        if kv_sp:
+            kv_src = gather_from_sp(kv_src, tp)
+        src = enter_tp(kv_src, tp, split=split, gathered=kv_sp)
     T = src.shape[1]
     q = dense_apply(p["wq"], x).reshape(B, S, -1, h)
     k = dense_apply(wk, src).reshape(B, T, -1, h)
@@ -249,7 +273,8 @@ def attn_apply(
         q.contiguous(), k.contiguous(), v.contiguous(),
         causal=causal and kv_src is None,
         window=cfg.sliding_window if kv_src is None else 0)
-    return reduce_from_tp(dense_apply(p["wo"], out.reshape(B, S, -1)), tp)
+    return leave_tp(dense_apply(p["wo"], out.reshape(B, S, -1)), tp,
+                    split=split, sp=sp)
 
 
 def kv_cache_update(cache_arr: torch.Tensor, new: torch.Tensor,
@@ -322,17 +347,20 @@ def prefill_attention(
 
 
 def attn_prefill_apply(p: dict, cfg, x: torch.Tensor, cache: dict,
-                       cache_index, count, tp=None) -> tuple:
+                       cache_index, count, tp=None, sp: bool = False
+                       ) -> tuple:
     """Span prefill: project a (B, C, d) chunk, write its K/V IN PLACE at
     per-row cache indices (``count`` masks each row's valid lanes),
     attend causally over the cache.  Returns ``(out, k_cache, v_cache)``.
     RoPE is applied at the absolute positions ``cache_index + lane``.
-    With ``tp`` as in :func:`attn_apply`: the rank's heads, its cache of
-    their K/V, ``wo``'s partial product all-reduced."""
+    With ``tp`` and ``sp`` as in :func:`attn_apply`: the rank's heads, its
+    cache of their K/V (written from the whole chunk), ``wo``'s partial
+    product all-reduced or, with ``sp``, reduce-scattered."""
     B, C, d = x.shape
     h = cfg.head_dim
-    tp, wk, wv = tp_heads(p, cfg, tp)
-    x = copy_to_tp(x, tp)
+    atp, wk, wv = tp_heads(p, cfg, tp)
+    split = atp is not None
+    x = enter_tp(x, tp, split=split, gathered=sp)
     q = dense_apply(p["wq"], x).reshape(B, C, -1, h)
     k = dense_apply(wk, x).reshape(B, C, -1, h)
     v = dense_apply(wv, x).reshape(B, C, -1, h)
@@ -345,7 +373,8 @@ def attn_prefill_apply(p: dict, cfg, x: torch.Tensor, cache: dict,
     k_cache = kv_cache_update_span(cache["k"], k, ci, cnt)
     v_cache = kv_cache_update_span(cache["v"], v, ci, cnt)
     out = prefill_attention(q, k_cache, v_cache, ci)
-    y = reduce_from_tp(dense_apply(p["wo"], out.reshape(B, C, -1)), tp)
+    y = leave_tp(dense_apply(p["wo"], out.reshape(B, C, -1)), tp,
+                 split=split, sp=sp)
     return y, k_cache, v_cache
 
 

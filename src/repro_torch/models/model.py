@@ -20,10 +20,17 @@ step and the batcher) ``params`` is one model rank's compute shards
 (``distributed.sharding.tp_local_params``): the embedding is
 vocab-parallel (ids outside the rank's rows masked, then all-reduced),
 the head column-parallel (the logits are this rank's vocab shard) and the
-loss a vocab-parallel cross entropy; the caches of :func:`init_cache` are
-the rank's (its KV heads and ``d_inner`` channels, its rows of the
-batch over the data axes), and :func:`vocab_argmax` reduces the sharded
-logits to the next tokens.
+loss a vocab-parallel cross entropy.  Where ``m`` divides the sequence
+(``distributed.sharding.seq_sharded``; not in decode) the residual
+stream between layers is sequence-parallel, as the reference's
+``shard_act`` lays it out: the embedding's partial sums are
+reduce-scattered onto this rank's ``S/m`` rows, every layer gathers its
+normed input and scatters its output, whisper's encoder frames and the
+vlm's vision embeddings are cut to the rank's rows where their length
+divides, and the head's input is gathered after the final norm.  The
+caches of :func:`init_cache` are the rank's (its KV heads and
+``d_inner`` channels, its rows of the batch over the data axes), and
+:func:`vocab_argmax` reduces the sharded logits to the next tokens.
 """
 
 from __future__ import annotations
@@ -37,11 +44,12 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..device import resolve_device, torch_dtype
 from ..distributed.comm import (
-    copy_to_tp, expert_comm, model_comm, reduce_from_tp,
+    copy_to_tp, expert_comm, gather_from_sp, leave_tp, model_comm,
+    reduce_from_tp,
 )
 from ..distributed.sharding import (
-    current_mesh, data_size, expert_axis_size, model_size, shard_act,
-    shard_logits, tp_local_config,
+    current_mesh, data_size, expert_axis_size, model_size, seq_sharded,
+    shard_act, shard_logits, tp_local_config,
 )
 from . import blocks as B
 from . import layers as L
@@ -171,9 +179,12 @@ def _head(params: dict, cfg: ModelConfig) -> torch.Tensor:
     return params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
 
 
-def _embed(params: dict, tokens: torch.Tensor, tp) -> torch.Tensor:
+def _embed(params: dict, tokens: torch.Tensor, tp,
+           sp: bool = False) -> torch.Tensor:
     """The token embeddings; with ``tp`` the embedding holds this rank's
-    vocab rows: other ids give zero rows, and the ranks' rows are summed."""
+    vocab rows: other ids give zero rows, and the ranks' rows are summed
+    (with ``sp`` reduce-scattered onto this rank's block of the
+    sequence)."""
     emb, tokens = params["embed"], tokens.long()
     if tp is None:
         return emb[tokens]
@@ -182,7 +193,7 @@ def _embed(params: dict, tokens: torch.Tensor, tp) -> torch.Tensor:
     mine = (local >= 0) & (local < V)
     x = torch.where(mine[..., None], emb[torch.clamp(local, 0, V - 1)],
                     torch.zeros((), dtype=emb.dtype, device=emb.device))
-    return reduce_from_tp(x, tp)
+    return leave_tp(x, tp, sp=sp)
 
 
 def _n_layers(stack: dict) -> int:
@@ -233,40 +244,55 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     expert_comm` of the current mesh (then ``params`` may hold this
     rank's ``E/S`` experts).  Both are handed to every layer, so that a
     ``remat`` recompute, which runs where the mesh context is unset,
-    takes the same path."""
+    takes the same path.  Where ``tp``'s size divides S the layers run
+    sequence-parallel (the module docstring); the logits are whole over
+    the sequence either way."""
     if tp is None:
         tp = model_comm(current_mesh())
     if ep is None:
         ep = expert_comm(current_mesh(), cfg)
-    x = shard_act(_embed(params, batch["tokens"], tp))
+    sp = seq_sharded(tp, batch["tokens"].shape[1])
+    x = _embed(params, batch["tokens"], tp, sp)
     kw = dict(schedule=schedule, q_chunk=q_chunk, k_chunk=k_chunk,
-              ssm_chunk=ssm_chunk, tp=tp, ep=ep)
+              ssm_chunk=ssm_chunk, tp=tp, ep=ep, sp=sp)
     layer = B.layer_apply
     if remat and torch.is_grad_enabled():
         def layer(*a, **k):
             return checkpoint(B.layer_apply, *a, use_reentrant=False, **k)
+    if cfg.family in ("encdec", "vlm"):
+        # the context is cut to this rank's rows where its length divides
+        ctx = batch["enc_frames" if cfg.family == "encdec" else "vis_embed"]
+        ctx_sp = seq_sharded(tp, ctx.shape[1])
+        ctx = shard_act(ctx.to(x.dtype), tp)
     if cfg.family == "encdec":
-        enc = shard_act(batch["enc_frames"].to(x.dtype))
+        enc = ctx
         for p in _unbind(params["enc_layers"]):
-            enc = layer(p, cfg, enc, "enc", causal=False, **kw)
+            enc = layer(p, cfg, enc, "enc", causal=False,
+                        **dict(kw, sp=ctx_sp))
         ctx = L.norm_apply(params["enc_norm"], enc, cfg.norm)
         for p in _unbind(params["dec_layers"]):
-            x = layer(p, cfg, x, "dec", ctx=ctx, **kw)
+            x = layer(p, cfg, x, "dec", ctx=ctx, ctx_sp=ctx_sp, **kw)
     elif cfg.family == "vlm":
-        ctx = shard_act(batch["vis_embed"].to(x.dtype))
         for gself, gcross in zip(_unbind(params["self_layers"]),
                                  _unbind(params["cross_layers"])):
             for p in _unbind(gself):
                 x = layer(p, cfg, x, "dense", **kw)
-            x = layer(gcross, cfg, x, "cross", ctx=ctx, **kw)
+            x = layer(gcross, cfg, x, "cross", ctx=ctx, ctx_sp=ctx_sp,
+                      **kw)
     else:
         kind = _plan(cfg)[0][1]
         for p in _unbind(params["layers"]):
             x = layer(p, cfg, x, kind, **kw)
-    if last_only:
-        x = x[:, -1:]
-    x = L.norm_apply(params["final_norm"], x, cfg.norm)
-    return shard_logits(copy_to_tp(x, tp) @ _head(params, cfg))
+    if sp:
+        # the head is column-parallel: it reads the whole sequence
+        x = gather_from_sp(L.norm_apply(params["final_norm"], x, cfg.norm),
+                           tp)
+        x = x[:, -1:] if last_only else x
+    else:
+        x = copy_to_tp(L.norm_apply(params["final_norm"],
+                                    x[:, -1:] if last_only else x,
+                                    cfg.norm), tp)
+    return shard_logits(x @ _head(params, cfg))
 
 
 def loss_fn(params, cfg, batch, tp=None, **kw):
@@ -396,7 +422,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     if ep is None:
         ep = expert_comm(current_mesh(), cfg)
     ci = batch["cache_index"]
-    x = shard_act(_embed(params, batch["tokens"], tp))
+    x = _embed(params, batch["tokens"], tp)     # S = 1: never sharded
     if cfg.family == "vlm":
         selfp, selfc = params["self_layers"], cache["self_layers"]
         for gi in range(_n_layers(params["cross_layers"])):
@@ -446,7 +472,9 @@ def prefill_step(params: dict, cfg: ModelConfig, cache: dict,
     the params, cache, rows and logits on a mesh, as in
     :func:`decode_step`; chunked prefill stays bitwise equal to whole
     prefill there, each rank's partial sums reduced alike whatever the
-    chunking."""
+    chunking.  Where the model axis divides C the span runs
+    sequence-parallel (each rank's rows of the chunk between layers; the
+    K/V written to the caches are the whole chunk's)."""
     if tp is None:
         tp = model_comm(current_mesh())
     if ep is None:
@@ -464,17 +492,20 @@ def prefill_step(params: dict, cfg: ModelConfig, cache: dict,
     cache_index = torch.as_tensor(batch["cache_index"], device=dev).long()
     count = torch.as_tensor(batch["count"], device=dev).long()
     kind = _plan(cfg)[0][1]
-    x = shard_act(_embed(params, tokens, tp))
+    sp = seq_sharded(tp, tokens.shape[1])
+    x = _embed(params, tokens, tp, sp)
     stack = params["layers"]
     for i in range(_n_layers(stack)):
         x, _ = B.layer_prefill_apply(_layer(stack, i), cfg, x,
                                      _layer(cache["layers"], i),
-                                     cache_index, count, kind, tp=tp, ep=ep)
+                                     cache_index, count, kind, tp=tp, ep=ep,
+                                     sp=sp)
     x = L.norm_apply(params["final_norm"], x, cfg.norm)
+    # the head is column-parallel: every row's last lane, on every rank
+    x = gather_from_sp(x, tp) if sp else copy_to_tp(x, tp)
     last = torch.clamp(count - 1, 0, tokens.shape[1] - 1)
     x = torch.gather(x, 1, last[:, None, None].expand(-1, 1, x.shape[-1]))
-    return shard_logits((copy_to_tp(x, tp) @ _head(params, cfg))[:, 0]), \
-        cache
+    return shard_logits((x @ _head(params, cfg))[:, 0]), cache
 
 
 def vocab_argmax(logits: torch.Tensor, vocab: int, tp=None) -> torch.Tensor:

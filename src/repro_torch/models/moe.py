@@ -28,6 +28,12 @@ all-reduced.  Beside an expert axis that takes E the EP round runs inside
 that region, each model rank with the ``d_ff/m`` slice of its expert
 rank's ``E/S`` experts.  The gates and the dispatched tokens enter the
 tensor-parallel region, so their gradients are summed over the ranks.
+With sequence parallelism (``sp``) the layer's input is the whole token
+set gathered from the model ranks' sequence blocks: routing, capacity
+and the re-route read every token, as in the reference, so the drops are
+the reference's (routing a block alone would not be), and the output
+leaves by a reduce-scatter onto this rank's block (the EP round's whole
+result by a slice).
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..distributed.comm import copy_to_tp, expert_comm, reduce_from_tp
+from ..distributed.comm import copy_to_tp, enter_tp, expert_comm, leave_tp
 from ..distributed.sharding import current_mesh
 from ..kernels.moe_dispatch.ops import dispatch_combine
 from ..sched import ExpertCapacityProvider
@@ -129,7 +135,7 @@ def route(x: torch.Tensor, router_w: torch.Tensor, top_k: int):
 
 def moe_apply(p: dict, cfg, x: torch.Tensor,
               return_stats: bool = False, use_kernel: bool = True, tp=None,
-              ep=None):
+              ep=None, sp: bool = False):
     """x: (B, S, d) or (T, d).  Dispatch per ``cfg.moe_dispatch``; the
     SwiGLU expert FFN runs the grouped-matmul kernel unless
     ``use_kernel=False`` (the reference's einsum path).  With ``tp`` (a
@@ -143,10 +149,17 @@ def moe_apply(p: dict, cfg, x: torch.Tensor,
     tensor-parallel region over ``tp``, ``p``'s experts this rank's ``E/S``
     × ``d_ff/m`` (or whole, sliced).
     The caller passes ``ep`` where the mesh context may be unset: a
-    ``remat`` recompute runs on the autograd engine's thread."""
+    ``remat`` recompute runs on the autograd engine's thread.  ``sp``:
+    ``x`` (B, S, d) is the whole sequence gathered from the model ranks'
+    blocks, and the result is this rank's block (B, S/m, d).  Routing and
+    the EP round compute alike on every model rank, so they read ``x``
+    with only this rank's block of its gradient passed back
+    (``keep_block_grad``); the experts' partial products are
+    reduce-scattered, the round's whole result sliced."""
     orig_shape = x.shape
-    if x.ndim == 3:
-        x = x.reshape(-1, x.shape[-1])
+    # routing and the EP round compute alike on every model rank
+    xr = enter_tp(x, tp, split=False, gathered=sp).reshape(-1, x.shape[-1])
+    x = x.reshape(-1, x.shape[-1])
     T, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     if ep is None:
@@ -157,19 +170,20 @@ def moe_apply(p: dict, cfg, x: torch.Tensor,
         # and sliced back.
         from ..ep.dispatch import ep_dispatch_combine
         pad = (-T) % ep.size
-        xp = F.pad(x, (0, 0, 0, pad)) if pad else x
+        xp = F.pad(xr, (0, 0, 0, pad)) if pad else xr
         out = ep_dispatch_combine(p, cfg, xp, comm=ep, tp=tp,
                                   use_kernel=use_kernel,
                                   return_stats=return_stats)
         y, ep_stats = out if return_stats else (out, None)
-        y = (y[:T] if pad else y).reshape(orig_shape)
+        y = leave_tp((y[:T] if pad else y).reshape(orig_shape), tp,
+                     split=False, sp=sp)
         if return_stats:
             ep_stats["padded_tokens"] = pad
             return y, ep_stats
         return y
     C = capacity(T, E, K, cfg.moe_capacity_factor)
     cap = ExpertCapacityProvider(E, C)
-    gates, ids, probs = route(x, p["router"], K)
+    gates, ids, probs = route(xr, p["router"], K)
     rounds = 1
     experts = None
     if tp is not None and p["w1"].shape[-3] < E:
@@ -177,9 +191,9 @@ def moe_apply(p: dict, cfg, x: torch.Tensor,
         experts = (tp.rank * n, (tp.rank + 1) * n)
 
     def run(gates_, ids_, pos_, keep_):
-        return reduce_from_tp(dispatch_combine(
-            copy_to_tp(x, tp), copy_to_tp(gates_, tp), ids_, pos_, keep_,
-            E, C, p, cfg.act, use_kernel=use_kernel, experts=experts), tp)
+        return dispatch_combine(
+            enter_tp(x, tp, gathered=sp), copy_to_tp(gates_, tp), ids_, pos_,
+            keep_, E, C, p, cfg.act, use_kernel=use_kernel, experts=experts)
 
     if cfg.moe_dispatch == "lc":
         pos = _positions_in_expert(ids, E)
@@ -195,7 +209,7 @@ def moe_apply(p: dict, cfg, x: torch.Tensor,
             ids, gates, probs, pos1, keep1, load, cap, E,
             expert_open=resid > 0)
         y = run(gates_final, ids_final, pos_final, keep)
-    y = y.reshape(orig_shape)
+    y = leave_tp(y.reshape(orig_shape), tp, sp=sp)
     if return_stats:
         return y, {"dropped_frac": torch.sum(~keep) / (T * K),
                    "spawns": torch.sum(keep),

@@ -20,7 +20,11 @@ On a ``"model"`` mesh axis (``tp``) a rank holds ``d_inner / m`` channels
 ``in_proj`` and ``dt_proj`` are column-parallel, ``x_proj`` and
 ``out_proj`` row-parallel, so ``(dt, B, C)`` are all-reduced before the
 split and ``ssm_scan`` runs at ``d_inner / m``; decode likewise, on the
-rank's ``conv`` / ``h`` caches of its channels.
+rank's ``conv`` / ``h`` caches of its channels.  With sequence
+parallelism (``sp``) the block's input is the whole sequence gathered
+from the model ranks' blocks (the scan needs every step) and
+``out_proj``'s partial product is reduce-scattered onto this rank's
+block instead of all-reduced.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..distributed.comm import copy_to_tp, reduce_from_tp
+from ..distributed.comm import copy_to_tp, enter_tp, leave_tp, reduce_from_tp
 from ..kernels.ssm_scan.ops import ssm_scan_op
 from .layers import _norm_init, dense_apply, dense_init
 
@@ -120,18 +124,21 @@ def ssm_scan_chunked(p: dict, cfg, x: torch.Tensor,
     return torch.cat(ys, dim=1) + x.float() * p["D"]
 
 
-def ssm_apply(p: dict, cfg, x: torch.Tensor, chunk: int = 256, tp=None
-              ) -> torch.Tensor:
+def ssm_apply(p: dict, cfg, x: torch.Tensor, chunk: int = 256, tp=None,
+              sp: bool = False) -> torch.Tensor:
     """Full mamba block: in_proj → conv → selective scan → gate → out;
     with ``tp`` (a model-axis ``Collectives``) on this rank's channels,
-    ``out_proj``'s partial product all-reduced."""
-    xi, z = torch.chunk(dense_apply(p["in_proj"], copy_to_tp(x, tp)), 2,
+    ``out_proj``'s partial product all-reduced (with ``sp``, ``x``
+    gathered from the sequence blocks: reduce-scattered onto this rank's
+    block)."""
+    xi, z = torch.chunk(dense_apply(p["in_proj"],
+                                    enter_tp(x, tp, gathered=sp)), 2,
                         dim=-1)
     xi, _ = _causal_conv(xi, p["conv_w"], p["conv_b"])
     xi = F.silu(xi)
     y = ssm_scan_chunked(p, cfg, xi, chunk=chunk, tp=tp)
     y = y * F.silu(z.float())
-    return reduce_from_tp(dense_apply(p["out_proj"], y.to(x.dtype)), tp)
+    return leave_tp(dense_apply(p["out_proj"], y.to(x.dtype)), tp, sp=sp)
 
 
 # ---------------------------------------------------------------------------

@@ -54,9 +54,16 @@ optimizer state are this model rank's compute shards
 (``step.local_state`` cuts them from whole trees, ``step.whole_state``
 gathers them back), the FSDP layout is built over those local shapes,
 the data ranks of one model rank sync its shards, and the gradient norm
-adds the model ranks' sums.  The layers' all-reduces over the model
-ranks (the recompute under ``remat`` re-issues a layer's forward ones)
-and the norm's are counted apart, in ``metrics["tp_collectives"]``.
+adds the model ranks' sums.  Where the model axis divides the sequence
+the layers run sequence-parallel (:mod:`repro_torch.distributed.comm`):
+the norms' scales and biases and the MLP's ``b2`` then see only this
+rank's rows, so their gradients are partial sums, added over the model
+ranks in one all-reduce per step with the step-end sync
+(:func:`~repro_torch.distributed.sharding.sp_summed`), as the router's
+are over the expert ranks.  The layers' collectives over the model ranks
+(the recompute under ``remat`` re-issues a layer's forward ones up to
+its last saved tensor), that sum and the norm's are counted apart, in
+``metrics["tp_collectives"]``.
 
 On both (the reference's ``(expert, data, model)`` production layout)
 each rank holds its expert rank's ``E/S`` experts with their d_ff over
@@ -91,8 +98,8 @@ from ..distributed.comm import (
     Collectives, expert_comm, mesh_group, model_comm,
 )
 from ..distributed.sharding import (
-    current_mesh, ep_summed, fsdp_axes, fsdp_layout, tp_gather_params,
-    tp_local_params, tp_owned,
+    current_mesh, ep_summed, fsdp_axes, fsdp_layout, sp_summed,
+    tp_gather_params, tp_local_params, tp_owned,
 )
 from ..models import model as MDL
 from ..sched import FixedCapacity, get_policy
@@ -281,6 +288,17 @@ def _sync_buckets(comm, acc, dims, bins, compress: bool):
     return out
 
 
+def _sum_leaves(comm, acc, idx) -> None:
+    """Sum ``acc[i]`` for ``i`` in ``idx`` over ``comm``'s ranks in one
+    flat all-reduce, in place of the list's entries."""
+    flat = comm.all_reduce(torch.cat([acc[i].reshape(-1) for i in idx]))
+    off = 0
+    for i in idx:
+        n = acc[i].numel()
+        acc[i] = flat[off:off + n].reshape(acc[i].shape)
+        off += n
+
+
 def _check_sharded(opt_state, leaves, dims, size: int) -> None:
     """Refuse a whole optimizer state where the layout shards it."""
     for m, p, d in zip(tree_leaves(opt_state["m"]), leaves, dims):
@@ -334,6 +352,15 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
     if ep is not None:
         summed = [i for i, f in enumerate(tree_leaves(
             ep_summed(shapes, cfg, ep.size))) if f]
+
+    def model_summed(batch) -> list:
+        """The leaves whose gradients are partial on each model rank at
+        this batch's lengths (sequence parallelism)."""
+        if tp is None:
+            return []
+        enc = batch["enc_frames"].shape[1] if "enc_frames" in batch else 0
+        return [i for i, f in enumerate(tree_leaves(sp_summed(
+            shapes, tp.size, batch["tokens"].shape[1], enc))) if f]
     if mesh is not None:
         group = mesh_group(mesh, fsdp_axes(mesh))
         if dp_shard:
@@ -411,16 +438,14 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
             del g
         for a in acc:
             a.div_(M)
+        # the partial gradients of the router over the expert ranks and
+        # of the leaves that see one model rank's rows over the model
+        # ranks: one all-reduce per axis and step, with the step-end sync
         if summed:
-            # the router's partial gradients summed over the expert ranks:
-            # one all-reduce per step, with the step-end sync
-            flat = epc.all_reduce(torch.cat([acc[i].reshape(-1)
-                                             for i in summed]))
-            off = 0
-            for i in summed:
-                n = acc[i].numel()
-                acc[i] = flat[off:off + n].reshape(acc[i].shape)
-                off += n
+            _sum_leaves(epc, acc, summed)
+        tsummed = model_summed(batch)
+        if tsummed:
+            _sum_leaves(tpc, acc, tsummed)
 
         # --- step-end synchronisation per policy ------------------------
         compress = scfg.grad_compress == "bf16"

@@ -30,6 +30,7 @@ collectives in ``train/train_step.py``, per-rank checkpoints) on the CPU.
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -54,9 +55,11 @@ from repro_torch.ckpt.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config as t_get_config  # noqa: E402
 from repro_torch.configs.base import ShapeConfig as TShapeConfig  # noqa: E402
 from repro_torch.configs.registry import ARCH_IDS  # noqa: E402
+from repro_torch.distributed.comm import axis_groups  # noqa: E402
 from repro_torch.distributed.sharding import (  # noqa: E402
     MeshShape, fsdp_layout, mesh_context, param_specs_tree,
 )
+from repro_torch.launch.mesh import production_mesh_shape  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.sched import FixedCapacity  # noqa: E402
 from repro_torch.train import optimizer as TO  # noqa: E402
@@ -407,6 +410,96 @@ def test_param_specs_match_reference(dist_results, arch, mesh):
                 want = dist_results["specs"][f"{mesh}|{arch}|{smoke}"
                                              f"{label}|{dp}"]
                 assert got == want, (arch, mesh, smoke, label, dp)
+
+
+#: the production meshes with a pod axis: make_production_mesh's kwargs
+PRODUCTION = {"multi_pod": {"multi_pod": True},
+              "multi_pod_expert2": {"multi_pod": True, "expert": 2}}
+
+
+class _AxisSizes:
+    """The names and sizes of a mesh too large to build here, as the
+    reference's spec rules read them (``axis_names``, ``shape``), entered
+    as its ``mesh_context`` enters a mesh."""
+
+    def __init__(self, names, sizes):
+        self.axis_names = tuple(names)
+        self.shape = dict(zip(names, sizes))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("prod", sorted(PRODUCTION))
+def test_production_multi_pod_specs_match_reference(arch, prod):
+    """``production_mesh_shape`` (what ``make_production_mesh`` builds)
+    with a pod axis, ``(2, 16, 16)`` and ``(2, 2, 8, 16)`` with an expert
+    axis: the port's specs are the reference's on its production mesh's
+    names and sizes, for every architecture (SMOKE and full, ``dp_shard``
+    on and off, MoE configs also with ``expert_parallel``)."""
+    from repro.distributed import sharding as JS
+
+    mesh = production_mesh_shape(**PRODUCTION[prod])
+    kw = PRODUCTION[prod]
+    assert mesh.mesh_dim_names == ("pod",) + (("expert",) if kw.get(
+        "expert") else ()) + ("data", "model")
+    ref = _AxisSizes(mesh.mesh_dim_names, mesh.shape)
+    assert math.prod(mesh.shape) == 512
+    for smoke in (True, False):
+        for label, cfg in _spec_cases(t_get_config(arch, smoke=smoke)):
+            jcfg = get_config(arch, smoke=smoke)
+            if label:
+                jcfg = dataclasses.replace(jcfg, expert_parallel=True)
+            jshapes = JM.param_shapes(jcfg)
+            for dp in (True, False):
+                with mesh_context(mesh):
+                    got = _jsonable(param_specs_tree(TM.param_shapes(cfg),
+                                                     cfg, dp_shard=dp))
+                with JS.mesh_context(ref):
+                    want = jax.tree.map(tuple, JS.param_specs_tree(
+                        jshapes, jcfg, dp_shard=dp), is_leaf=lambda x:
+                        isinstance(x, jax.sharding.PartitionSpec))
+                assert got == _jsonable(want), (arch, prod, smoke, label, dp)
+
+
+@pytest.mark.parametrize("prod", sorted(PRODUCTION))
+def test_production_multi_pod_groups_partition_the_world(prod):
+    """The data-parallel groups ``mesh_group`` builds over ``("pod",
+    "data")`` on the production multi-pod mesh (``axis_groups``, no
+    process group): one per coordinate of the other axes, 32 ranks each
+    (16 with an expert axis of 2, which takes its share of the data
+    axis), ascending, together every one of the 512 ranks once; each
+    group's ranks share their model (and expert) coordinate and take
+    every (pod, data) coordinate in order."""
+    mesh = production_mesh_shape(**PRODUCTION[prod])
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    groups = axis_groups(mesh, ("pod", "data"))
+    n_dp = sizes["pod"] * sizes["data"]
+    assert len(groups) == 512 // n_dp and all(len(g) == n_dp
+                                              for g in groups)
+    assert sorted(r for g in groups for r in g) == list(range(512))
+    coords = np.arange(512).reshape(mesh.shape)
+    names = list(mesh.mesh_dim_names)
+    for g in groups:
+        assert g == sorted(g)
+        at = [np.argwhere(coords == r)[0] for r in g]
+        for axis in names:
+            vals = [int(c[names.index(axis)]) for c in at]
+            if axis in ("pod", "data"):
+                continue
+            assert len(set(vals)) == 1, (axis, g)
+        assert [(int(c[names.index("pod")]), int(c[names.index("data")]))
+                for c in at] == [(p, d) for p in range(2)
+                                 for d in range(sizes["data"])]
+    # the model and expert axes' groups partition the world too
+    for axis in ("model",) + (("expert",) if "expert" in sizes else ()):
+        got = axis_groups(mesh, (axis,))
+        assert sorted(r for g in got for r in g) == list(range(512))
+        assert all(len(g) == sizes[axis] for g in got)
 
 
 def test_phi3_smoke_first_specs():

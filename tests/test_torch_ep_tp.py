@@ -907,15 +907,34 @@ def _data_collectives(policy):
                                   for b in bins))
 
 
-def _tp_all_reduces(n_layers):
-    """The model axis's all-reduces per step under ``remat``.  Per
-    microbatch: the embedding's, the cross entropy's three and the head
-    input's gradient; per layer, attention's output reduce, its input's
-    gradient and its recompute's, and the MoE round's lane reduce, its
-    recompute's (the recompute runs on to the gate-combine's saved input,
-    past the return exchange) and its packed tokens' gradient.  Per step:
-    the gradient norm's."""
-    return MICRO * (5 + 6 * n_layers) + 1
+def _tp_collectives(n_layers):
+    """The model axis's collectives per step under ``remat``,
+    sequence-parallel (S 16 over 2 model ranks).  Per microbatch, with
+    ``L`` layers:
+
+    * forward: the embedding's reduce-scatter onto the sequence blocks;
+      per layer the all-gathers of attention's and the MoE layer's normed
+      inputs, attention's output reduce-scatter and the round's lane
+      all-reduce (the round's whole result leaves by a slice); the head
+      input's all-gather; the cross entropy's three all-reduces —
+      ``2L + 1`` all-gathers, ``L + 1`` reduce-scatters, ``L + 3``
+      all-reduces;
+    * the recompute, which runs on to the gate-combine's saved input past
+      the return exchange: per layer the same two all-gathers, one
+      reduce-scatter and one lane all-reduce;
+    * backward: per layer the slice's and attention's output gradients
+      all-gathered, the two gathered inputs' gradients reduce-scattered
+      and the packed tokens' gradient all-reduced; the embedding's
+      all-gather and the head input's reduce-scatter.
+
+    So ``6L + 2`` all-gathers, ``4L + 2`` reduce-scatters and ``3L + 3``
+    all-reduces per microbatch (before sequence parallelism ``5 + 6L``
+    all-reduces).  Per step two all-reduces more: the norms' partial
+    gradients summed over the model ranks, and the gradient norm's."""
+    L = n_layers
+    return _counts(all_gather=MICRO * (6 * L + 2),
+                   reduce_scatter=MICRO * (4 * L + 2),
+                   all_reduce=MICRO * (3 * L + 3) + 2)
 
 
 def _ep_collectives(n_layers):
@@ -935,7 +954,7 @@ def test_step_collective_counts(ep_tp, policy):
     for data, model, expert in zip(r["collectives"], r["tp_collectives"],
                                    r["ep_collectives"]):
         assert data == [_data_collectives(policy)] * STEPS
-        assert model == [_counts(all_reduce=_tp_all_reduces(L))] * STEPS
+        assert model == [_tp_collectives(L)] * STEPS
         assert expert == [_ep_collectives(L)] * STEPS
 
 
@@ -947,20 +966,27 @@ def test_step_collective_counts(ep_tp, policy):
 @pytest.mark.parametrize("case", ["on", "on_thread", "no_context"])
 def test_remat_grads_bitwise_and_recompute_takes_both_axes(ep_tp, case):
     """Gradients with ``remat`` are bitwise those without; the recompute
-    re-issues each layer's two exchanges and its two model-axis reduces
-    (attention's and the round's; one microbatch, 2 layers), also with
-    the backward on a new thread, where the mesh context is unset."""
+    re-issues each layer's two exchanges and its model-axis collectives
+    up to the gate-combine (the two input all-gathers, attention's
+    reduce-scatter and the round's lane all-reduce; one microbatch, 2
+    layers, sequence-parallel), also with the backward on a new thread,
+    where the mesh context is unset."""
     L = _t_cfg().n_layers
     for r in ep_tp["remat"]:
         off, on = r["off"], r[case]
         assert on["bitwise"] and off["bitwise"]
         assert off["fwd"] == on["fwd"] == [
             _counts(all_to_all=2 * L, all_gather=L),
-            _counts(all_reduce=1 + 2 * L + 3)]
+            _counts(all_gather=2 * L + 1, reduce_scatter=L + 1,
+                    all_reduce=L + 3)]
         assert off["bwd"] == [_counts(all_to_all=2 * L, all_gather=L),
-                              _counts(all_reduce=2 * L + 1)]
+                              _counts(all_gather=2 * L + 1,
+                                      reduce_scatter=2 * L + 1,
+                                      all_reduce=L)]
         assert on["bwd"] == [_counts(all_to_all=4 * L, all_gather=L),
-                             _counts(all_reduce=4 * L + 1)]
+                             _counts(all_gather=4 * L + 1,
+                                     reduce_scatter=3 * L + 1,
+                                     all_reduce=2 * L)]
 
 
 # ---------------------------------------------------------------------------
@@ -1009,12 +1035,24 @@ def test_decode_matches_reference(ep_tp, reference):
 
 
 def _serve_counts(n_layers):
-    """Per decode step or prefill round: the expert axis's two exchanges
-    and output all-gather per MoE layer; the model axis's all-reduces,
-    the embedding's and per layer attention's and the round's lane
-    reduce."""
+    """Per decode step (S = 1, never sequence-parallel): the expert axis's
+    two exchanges and output all-gather per MoE layer; the model axis's
+    all-reduces, the embedding's and per layer attention's and the
+    round's lane reduce."""
     return [_counts(all_to_all=2 * n_layers, all_gather=n_layers),
             _counts(all_reduce=1 + 2 * n_layers)]
+
+
+def _prefill_counts(n_layers):
+    """Per prefill round of an even chunk, sequence-parallel: the expert
+    axis's as in decode; on the model axis the embedding's reduce-scatter,
+    per layer the two normed inputs' all-gathers, attention's
+    reduce-scatter and the round's lane all-reduce (its whole result
+    leaves by a slice), and the head input's all-gather."""
+    L = n_layers
+    return [_counts(all_to_all=2 * L, all_gather=L),
+            _counts(all_gather=2 * L + 1, reduce_scatter=L + 1,
+                    all_reduce=L)]
 
 
 def test_decode_collectives_exact(ep_tp):
@@ -1032,7 +1070,7 @@ def test_chunked_prefill_is_bitwise_whole_and_matches_one_process(ep_tp):
     assert s["prefill_delta"] == [0.0] * 4
     assert s["one_process_prefill_delta"] == 0.0
     assert s["prefill_err"] <= 2e-5
-    assert s["prefill_counts"] == [_serve_counts(_t_cfg().n_layers)] * 4
+    assert s["prefill_counts"] == [_prefill_counts(_t_cfg().n_layers)] * 4
 
 
 def test_batcher_ranks_alike_and_match_one_process(ep_tp):
@@ -1049,11 +1087,13 @@ def test_batcher_ranks_alike_and_match_one_process(ep_tp):
 
 
 def test_batcher_collectives_exact(ep_tp):
-    """Per model launch the expert and model axes' collectives of
-    ``_serve_counts``; per decode step also the argmax's all-gather over
+    """Per decode step the expert and model axes' collectives of
+    ``_serve_counts``, per prefill round (chunk 4) those of
+    ``_prefill_counts``; per decode step also the argmax's all-gather over
     the model ranks and the tokens' all-gather over the data ranks."""
     L = _t_cfg().n_layers
     ep, tp = _serve_counts(L)
+    _, tp_pre = _prefill_counts(L)
     for got in ep_tp["serve"]["batcher"]:
         n_pre, n_dec = got["calls"]["prefill"], got["calls"]["decode"]
         n = n_pre + n_dec
@@ -1061,8 +1101,8 @@ def test_batcher_collectives_exact(ep_tp):
         data, expert, model = got["collectives"]
         assert data == _counts(all_gather=n_dec)
         assert expert == {k: v * n for k, v in ep.items()}
-        assert model == dict({k: v * n for k, v in tp.items()},
-                             all_gather=n_dec)
+        assert model == {k: tp[k] * n_dec + tp_pre[k] * n_pre +
+                         (n_dec if k == "all_gather" else 0) for k in tp}
 
 
 # ---------------------------------------------------------------------------

@@ -17,8 +17,10 @@ store under the test's temporary directory (as
   dense, granite moe with E over the model axis and a copy with E = 3, so
   that d_ff goes over it, falcon-mamba ssm, hymba hybrid and a copy whose
   heads do not divide, whisper encdec, llama-vision vlm, and a phi3 copy
-  with one KV head shared by both ranks): loss and every gradient equal to
-  the one-process port within 2e-5; the ranks route every MoE token
+  with one KV head shared by both ranks), sequence-parallel at S 16: loss
+  and every gradient (the leaves that see one rank's rows summed over the
+  ranks, as the train step sums them) equal to the one-process port
+  within 2e-5; the ranks route every MoE token
   alike; ``tp_gather_params`` of each rank's ``tp_local_params`` is the
   whole tree bit for bit; a checkpoint written on the ranks restores in
   one process bit for bit, and a one-process checkpoint restores on the
@@ -233,7 +235,7 @@ SCRIPT = textwrap.dedent("""
         from repro_torch.ckpt.checkpoint import CheckpointManager
         from repro_torch.distributed.comm import Collectives
         from repro_torch.distributed.sharding import (
-            mesh_context, tp_gather_params, tp_local_params)
+            mesh_context, sp_summed, tp_gather_params, tp_local_params)
         from repro_torch.launch.mesh import make_test_mesh
         from repro_torch.train import train_step as TT
         from repro_torch.tree import tree_leaves
@@ -246,6 +248,13 @@ SCRIPT = textwrap.dedent("""
             local = tp_local_params(params, cfg, rank, 2)
             with mesh_context(mesh):
                 loss, grads, routes = loss_grads(cfg, local, batch)
+            enc = batch["enc_frames"].shape[1] if "enc_frames" in batch \
+                else 0
+            for i, f in enumerate(tree_leaves(sp_summed(local, 2, SEQ,
+                                                        enc))):
+                if f:
+                    grads[i] = tpc.all_reduce(torch.from_numpy(
+                        grads[i])).numpy()
             back = tp_gather_params(local, cfg, tpc)
             out["cases"][name] = {
                 "loss": loss, "grads": grads, "routes": routes,
@@ -493,16 +502,35 @@ def _expected_collectives(policy):
     return out
 
 
-def _expected_tp_all_reduces(cfg):
-    """The model axis's all-reduces per step of a dense config under
-    ``remat``.  Per microbatch: the embedding's, the cross entropy's three
-    (max, sum of exponentials, gold logit) and the head input's gradient;
-    per layer, attention's and the MLP's output reduces and their inputs'
-    gradient reduces, plus attention's again in the layer's recompute (the
-    recompute stops at the layer's last saved tensor, the MLP's ``w2``
-    input, so the MLP's output reduce is not re-issued).  Per step: the
-    gradient norm's."""
-    return MICRO * (5 + 5 * cfg.n_layers) + 1
+def _expected_tp_collectives(cfg):
+    """The model axis's collectives per step of a dense config under
+    ``remat``, sequence-parallel (the model axis divides S).  Per
+    microbatch and layer ``L`` of them:
+
+    * forward: the embedding's reduce-scatter onto the sequence blocks;
+      per layer the all-gathers of attention's and the MLP's normed
+      inputs and the reduce-scatters of their outputs; the head input's
+      all-gather; the cross entropy's three all-reduces (max, sum of
+      exponentials, gold logit) — ``2L + 1`` all-gathers, ``2L + 1``
+      reduce-scatters, 3 all-reduces;
+    * the layer's recompute (it stops at the layer's last saved tensor,
+      the MLP's ``w2`` input, so the MLP's output reduce-scatter is not
+      re-issued): attention's all-gather and reduce-scatter and the MLP's
+      all-gather — ``2L`` all-gathers, ``L`` reduce-scatters;
+    * backward: each reduce-scatter's gradient all-gathered (``2L`` and
+      the embedding's 1), each all-gather's reduce-scattered (``2L`` and
+      the head input's 1).
+
+    So ``6L + 2`` all-gathers, ``5L + 2`` reduce-scatters and 3
+    all-reduces per microbatch (before sequence parallelism: ``5 + 5L``
+    all-reduces).  Per step two more all-reduces: the sum of the norms'
+    partial gradients over the model ranks and the gradient norm's."""
+    L = cfg.n_layers
+    return dict.fromkeys(("all_reduce", "reduce_scatter", "all_gather",
+                          "all_to_all", "send_recv"), 0) | {
+        "all_reduce": MICRO * 3 + 2,
+        "reduce_scatter": MICRO * (5 * L + 2),
+        "all_gather": MICRO * (6 * L + 2)}
 
 
 @pytest.mark.parametrize("policy", POLICIES)
@@ -511,8 +539,7 @@ def test_data2_model2_collective_counts(tp_results, policy):
     r = tp_results["four"][policy]
     for counts, tp in zip(r["collectives"], r["tp_collectives"]):
         assert counts == _expected_collectives(policy)
-        assert tp == dict(dict.fromkeys(counts, 0),
-                          all_reduce=_expected_tp_all_reduces(cfg))
+        assert tp == _expected_tp_collectives(cfg)
 
 
 def test_data2_model2_trainer_resumes(tp_results):

@@ -501,9 +501,9 @@ def _layer_reduces(cfg, kind: str, m: int) -> int:
 
 
 def _expected_serve_all_reduces(cfg, m: int = 2) -> int:
-    """The model axis's all-reduces per decode step (and per prefill
-    round, for dense and moe): the embedding's, then every layer's; the
-    head is column-parallel and issues none."""
+    """The model axis's all-reduces per decode step (S = 1, so never
+    sequence-parallel): the embedding's, then every layer's; the head is
+    column-parallel and issues none."""
     if cfg.family == "vlm":
         g = cfg.n_layers // cfg.cross_every
         layers = g * ((cfg.cross_every - 1) * _layer_reduces(
@@ -513,6 +513,23 @@ def _expected_serve_all_reduces(cfg, m: int = 2) -> int:
     else:
         layers = cfg.n_layers * _layer_reduces(cfg, cfg.family, m)
     return 1 + layers
+
+
+def _expected_prefill_collectives(cfg, m: int = 2) -> dict:
+    """The model axis's collectives per prefill round of a dense or moe
+    config whose chunk ``m`` divides, sequence-parallel: the embedding's
+    reduce-scatter onto the sequence blocks; per layer the all-gathers
+    of attention's and the FFN's normed inputs, and the reduce-scatters of
+    the FFN's output and of attention's where its heads split over ``m``
+    (whole attention leaves by a slice); the head input's all-gather.
+    No all-reduce (before sequence parallelism: ``1 + 2L``)."""
+    from repro_torch.distributed.sharding import attn_split
+
+    L = cfg.n_layers
+    attn = 1 if attn_split(cfg, m) else 0
+    return dict.fromkeys(("all_reduce", "reduce_scatter", "all_gather",
+                          "all_to_all", "send_recv"), 0) | {
+        "reduce_scatter": 1 + L * (attn + 1), "all_gather": 1 + 2 * L}
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -528,7 +545,7 @@ def test_model2_decode_collectives_exact(serve_results, name):
 def test_model2_chunked_prefill_is_bitwise_whole(serve_results, name):
     """Whole prefill of 11 tokens against 11 × 1 and 8 + 3 on the ranks:
     every local cache leaf and the next decode step's logits equal, max
-    |Δ| == 0.0, and one prefill round's all-reduces exact."""
+    |Δ| == 0.0, and one prefill round's collectives exact."""
     cfg = _cfg(*PREFILL_CASES[name])
     for r in range(2):
         got = serve_results["ranks"]["two"][r]["prefill"][name]
@@ -539,9 +556,7 @@ def test_model2_chunked_prefill_is_bitwise_whole(serve_results, name):
                 assert float(np.abs(a - b).max()) == 0.0, path
             assert float(np.abs(run["logits"] - whole["logits"]).max()) \
                 == 0.0
-        assert got["counts"] == dict(
-            dict.fromkeys(got["counts"], 0),
-            all_reduce=_expected_serve_all_reduces(cfg))
+        assert got["counts"] == _expected_prefill_collectives(cfg)
 
 
 @pytest.mark.parametrize("case", [0, 1])
@@ -587,18 +602,21 @@ def test_data2_model2_batcher_rows_and_cache_layout(serve_results):
 
 
 def test_data2_model2_batcher_collectives_exact(serve_results):
-    """Per prefill round the model axis's all-reduces; per decode step
-    those, the argmax's all-gather over the model ranks and the tokens'
-    all-gather over the data ranks."""
+    """Per prefill round (chunk 4, sequence-parallel) the model axis's
+    all-gathers and reduce-scatters; per decode step its all-reduces, the
+    argmax's all-gather over the model ranks and the tokens' all-gather
+    over the data ranks."""
     cfg = _cfg("granite-moe-1b-a400m", {})
     per = _expected_serve_all_reduces(cfg)
-    zero = dict.fromkeys(("all_reduce", "reduce_scatter", "all_gather",
-                          "all_to_all", "send_recv"), 0)
+    pre = _expected_prefill_collectives(cfg)
+    zero = dict.fromkeys(pre, 0)
     for got in serve_results["ranks"]["four"]:
         n_pre, n_dec = got["calls"]["prefill"], got["calls"]["decode"]
         assert n_pre > 0 and n_dec > 0
-        assert got["tp"] == dict(zero, all_reduce=per * (n_pre + n_dec),
-                                 all_gather=n_dec)
+        assert got["tp"] == dict(
+            zero, all_reduce=per * n_dec,
+            reduce_scatter=pre["reduce_scatter"] * n_pre,
+            all_gather=n_dec + pre["all_gather"] * n_pre)
         assert got["dp"] == dict(zero, all_gather=n_dec)
 
 
