@@ -273,10 +273,6 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 SEED = 0
 
-# H100 SXM data-sheet peaks (dense): bytes/s of HBM3, FLOP/s per type
-# (float32: the CUDA cores; tf32: the tensor cores).
-HBM_BPS = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 
 
 def emit(obj: dict) -> None:
@@ -293,9 +289,25 @@ def timed(phase, *args):
 
 
 def bound(nbytes: float, flops: float, dtype: str) -> tuple:
-    t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """``(ms, "bytes" | "operations")`` on the H100 data sheet's dense
+    peaks, the dry run's yardstick (``repro_torch.roofline.analysis``:
+    3.35 TB/s of HBM3; bf16 989, fp32 67 (CUDA cores), TF32 495
+    TFLOP/s)."""
+    from repro_torch.roofline.analysis import bound_ms
+
+    return bound_ms(nbytes, flops, dtype)
+
+
+def mfu(cfg, kind: str, seq_len: int, batch: int, seconds: float) -> float:
+    """Model-FLOPs utilisation of one step of ``seconds``: the reference's
+    ``model_flops_estimate`` (6·N_active per trained token, 2·N_active
+    per prefilled or decoded one) over the bf16 dense peak."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.roofline.analysis import PEAK_FLOPS, model_flops_estimate
+
+    return model_flops_estimate(cfg, ShapeConfig(kind, seq_len, batch,
+                                                 kind)) \
+        / (seconds * PEAK_FLOPS)
 
 
 def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -978,6 +990,9 @@ def phase_serve(torch, cfg, card: str) -> dict:
            "steps": len(step_ms), "generated_tokens": gen_tokens,
            "prompt_tokens": sum(len(r.prompt) for r in reqs),
            "tokens_per_s": gen_tokens / wall, "wall_s": wall,
+           # a decode step of the 8 slots at the median step time
+           "mfu": mfu(cfg, "decode", 512, 8,
+                      float(np.percentile(step_ms, 50)) / 1e3),
            "p50_step_ms": float(np.percentile(step_ms, 50)),
            "p99_step_ms": float(np.percentile(step_ms, 99)),
            "max_memory_allocated_gb":
@@ -1454,6 +1469,7 @@ def phase_train(torch, cfg, card: str, steps: int = 4, seq_len: int = 1024,
            "nonfinite_skipped": sum(skipped), "step_ms": step_ms,
            "first_step_ms": step_ms[0], "rest_step_ms": rest,
            "tokens_per_s": B * S / rest * 1e3,
+           "mfu": mfu(cfg, "train", S, B, rest / 1e3),
            "max_memory_allocated_gb":
                torch.cuda.max_memory_allocated() / 1e9,
            "launches_per_step": per_step,
@@ -1567,7 +1583,8 @@ def nccl_world_of_one(torch):
 
 
 def expected_collectives(cfg, policy: str, microbatches: int,
-                         n_buckets: int, model: int = 1) -> dict:
+                         n_buckets: int, model: int = 1,
+                         data: int = 1) -> dict:
     """A step's collectives over the data axes by kind, from the param
     tree (one of ``model`` model ranks' compute shards) and the bucket
     plan: ``unopt`` all-reduces every leaf per microbatch, ``lc`` once;
@@ -1575,7 +1592,10 @@ def expected_collectives(cfg, policy: str, microbatches: int,
     all-reduces each replicated one and the norm's sums; ``afe_bucket``
     reduce-scatters each bucket's sharded leaves, all-reduces the
     replicated ones as one bucket and the norm's sums, and all-gathers
-    each bucket's sharded params by dtype."""
+    each bucket's sharded params by dtype.  On ``data > 1`` data ranks a
+    MoE layer (no expert axis) all-gathers the ranks' pair counts once
+    (``lc`` dispatch) or twice (``dlbc``) per forward, its ``remat``
+    recompute included (ROADMAP fault M)."""
     from repro_torch.distributed.sharding import (
         MeshShape, fsdp_layout, mesh_context, tp_local_params)
     from repro_torch.models import model as TM
@@ -1606,6 +1626,9 @@ def expected_collectives(cfg, policy: str, microbatches: int,
                    all_reduce=(1 if n > ns else 0) + 1,
                    all_gather=sum(len({leaves[i].dtype for i in b})
                                   for b in bins))
+    if data > 1 and cfg.family == "moe":
+        rounds = 1 if cfg.moe_dispatch == "lc" else 2
+        out["all_gather"] += microbatches * 2 * cfg.n_layers * rounds
     return out
 
 
@@ -1877,6 +1900,7 @@ def tp_rank_run(torch, rank: int, plan: dict) -> dict:
     full-width bf16 steps, on a ``(data 1, model 2)`` mesh."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.tree import tree_leaves
 
     dev = plan["dev"]
     mesh = make_test_mesh(data=1, model=2, device_type="cpu")
@@ -1893,6 +1917,9 @@ def tp_rank_run(torch, rank: int, plan: dict) -> dict:
     step, p, o, batch = tp_step_setup(
         torch, get_config(arch, smoke=plan["smoke"]), mesh, seq_len=S,
         global_batch=B, microbatches=mb, lr=1e-4, dev=dev)
+    out["bf16_bytes"] = {k: sum(t.numel() * t.element_size()
+                                for t in tree_leaves(v))
+                         for k, v in (("params", p), ("opt_state", o))}
     out["bf16"] = tp_steps(torch, step, p, o, batch, steps, dev)
     return out
 
@@ -2100,6 +2127,7 @@ def phase_tp_train(torch, cfg, hymba, card: str) -> list:
                "one_process_max_memory_allocated_gb":
                    one["max_memory_allocated_gb"],
                "one_process_activation_gb": one["activation_gb"],
+               "bf16_bytes": got[r]["bf16_bytes"],
                "expected_launches_per_step": expect,
                "expected_tp_collectives_per_step": tp_want}
         emit(row)
@@ -2116,6 +2144,71 @@ def phase_tp_train(torch, cfg, hymba, card: str) -> list:
     if bad:
         raise AssertionError(f"tp_train: {bad}")
     return rows
+
+
+def phase_dryrun(torch, cfg, card: str, tp_rows: list) -> dict:
+    """The dry run (``repro_torch.launch.dryrun.trace_step``) of
+    :func:`phase_tp_train`'s bf16 configuration — granite at full width,
+    seq 1024, global batch 8 in 2 microbatches, ``lc``, ``(data 1, model
+    2)`` — traced for rank 0 on the meta device: no storage, no launch.
+    Gates, against what the two ranks measured on the card: the model
+    axis's collectives per step (292 / 244 / 56), each kernel's traced
+    calls equal to a step's launches, the traced argument bytes of the
+    params and the optimizer state equal to the rank's exactly, the card's
+    ``total_memory`` the dry run's ``HBM_BYTES``.  Prints the traced
+    activation bytes (the tensors autograd saves, at their peak) beside
+    the ranks' ``activation_gb`` (peak allocated over the step less
+    before it: the gradients and their fp32 accumulators too), and the
+    roofline terms on the H100's constants."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import MeshShape
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.roofline.analysis import (
+        model_flops_estimate, roofline_fraction, roofline_from_opcost)
+
+    shape = ShapeConfig("train", 1024, 8, "train", microbatches=2)
+    t0 = time.perf_counter()
+    got = DR.trace_step(cfg, shape, MeshShape(("data", "model"), (1, 2)),
+                        policy="lc")
+    trace_s = time.perf_counter() - t0
+    terms = roofline_from_opcost(got["cost"], chips=2,
+                                 model_flops=model_flops_estimate(cfg, shape))
+    rank0 = next(r for r in tp_rows
+                 if r["check"] == "bf16" and r["rank"] == 0)
+    real = rank0["bf16_bytes"]
+    mem = got["memory"]
+    calls = {k: v["calls"] for k, v in got["kernels"].items()}
+    launched = {k: n for k, n in rank0["launches"][0].items() if n}
+    total = torch.cuda.get_device_properties(0).total_memory
+    row = {"phase": "dryrun", "card": card, "arch": cfg.name,
+           "mesh": "data 1, model 2", "policy": "lc", "seq_len": 1024,
+           "global_batch": 8, "microbatches": 2, "trace_s": trace_s,
+           "model_collectives": got["collectives"]["model"],
+           "measured_model_collectives": rank0["tp_collectives"][0],
+           "kernel_calls": calls, "measured_launches": launched,
+           "memory": mem, "measured_bytes": real,
+           "activation_gb": mem["activation_bytes"] / 1e9,
+           "measured_activation_gb": rank0["activation_gb"],
+           "total_memory": total, "dryrun_hbm_bytes": DR.HBM_BYTES,
+           "cost": got["cost"].as_dict(), "roofline": terms.as_dict(),
+           "roofline_fraction": roofline_fraction(terms)}
+    emit(row)
+    bad = []
+    if row["model_collectives"] != row["measured_model_collectives"]:
+        bad.append(f"model axis {row['model_collectives']} against "
+                   f"{row['measured_model_collectives']}")
+    if calls != launched:
+        bad.append(f"kernel calls {calls} against launches {launched}")
+    if (mem["params_bytes"], mem["opt_state_bytes"]) != \
+            (real["params"], real["opt_state"]):
+        bad.append(f"bytes {mem['params_bytes']} + {mem['opt_state_bytes']}"
+                   f" against {real['params']} + {real['opt_state']}")
+    if total != DR.HBM_BYTES:
+        bad.append(f"total_memory {total} against HBM_BYTES "
+                   f"{DR.HBM_BYTES}")
+    if bad:
+        raise AssertionError(f"dryrun: {bad}")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -3126,12 +3219,13 @@ def phase_multi_pod(torch, cfg, card: str, layers: int = 2) -> list:
     batch as one process's (run here first).  Gates: each rank's data
     group the 4 ranks of its model coordinate; the mean over the data
     ranks of the loss (each rank's is over its rows) within 2e-2 relative
-    of the one-process step's (the gradient norm is reported, not gated:
-    the port sizes expert capacity per data rank, ROADMAP fault M); each
-    rank's launches exactly ``expected_launches`` of the rank-local
-    config; the data axes' collectives (over the 4-rank group) those of
-    the policy over one model rank's tree, the model axis's
-    :func:`tp_expected`, none on an expert axis."""
+    of the one-process step's, and the gradient norm within 2e-3 (expert
+    capacity and slot positions over the whole microbatch, as one process
+    sizes them: ROADMAP fault M, repaired); each rank's launches exactly
+    ``expected_launches`` of the rank-local config; the data axes'
+    collectives (over the 4-rank group) those of the policy over one
+    model rank's tree with the MoE layers' count all-gathers, the model
+    axis's :func:`tp_expected`, none on an expert axis."""
     from repro_torch.distributed.sharding import tp_local_config
     from repro_torch.train.train_step import StepConfig
 
@@ -3158,7 +3252,8 @@ def phase_multi_pod(torch, cfg, card: str, layers: int = 2) -> list:
             bad.append(f"rank {r}: data group {got[r]['data_group']}")
     for policy in policies:
         data_want = expected_collectives(c, policy, mb,
-                                         StepConfig().n_buckets, model=2)
+                                         StepConfig().n_buckets, model=2,
+                                         data=4)
         losses = [got[r][policy]["losses"][0] for r in range(8)]
         loss = sum(losses[0::2]) / 4        # model rank 0 of each data rank
         ref = one[policy]
@@ -3181,6 +3276,10 @@ def phase_multi_pod(torch, cfg, card: str, layers: int = 2) -> list:
             x, y = loss, ref["losses"][0]
             if not math.isfinite(x) or abs(x - y) > 2e-2 * abs(y):
                 bad.append(f"{policy} rank {r}: {x} against {y}")
+            gn, g1 = b["grad_norms"][0], ref["grad_norms"][0]
+            if not math.isfinite(gn) or abs(gn - g1) > 2e-3 * abs(g1):
+                bad.append(f"{policy} rank {r}: gradient norm {gn} against "
+                           f"{g1}")
             if b["skipped"] != [0] or b["launches"] != [expect] or \
                     b["collectives"] != [data_want] or \
                     b["tp_collectives"] != [tp_want] or \
@@ -3415,7 +3514,9 @@ def main() -> int:
     timed(phase_ssm_scan_bwd, torch, (
         (f"hymba chunk, {rank2}, carried state", 1, 256, h2.d_inner,
          h2.ssm_state, True),))
-    timed(phase_tp_train, torch, cfg, hymba, smi)
+    tp_rows = timed(phase_tp_train, torch, cfg, hymba, smi)
+    # the dry run of tp_train's configuration on the meta device
+    timed(phase_dryrun, torch, cfg, smi, tp_rows)
     # expert parallelism under autograd (phase 20): the EP round forward
     # and backward on one NCCL rank against moe_apply, then two expert
     # ranks training full-width granite on the one card over gloo

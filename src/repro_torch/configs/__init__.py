@@ -1,4 +1,4 @@
 from .base import (  # noqa: F401
-    SHAPES, ModelConfig, ShapeConfig, shape_applicable,
+    SHAPES, ModelConfig, ShapeConfig, input_specs, shape_applicable,
 )
 from .registry import ARCH_IDS, all_cells, get_config  # noqa: F401

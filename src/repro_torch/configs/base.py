@@ -3,7 +3,8 @@
 ``ModelConfig`` describes an architecture (one file per assigned arch in
 this package); ``ShapeConfig`` describes an input-shape cell (train_4k /
 prefill_32k / decode_32k / long_500k).  A copy of the JAX package's
-configs without its dry-run ``input_specs`` (the dry-run is not ported).
+configs; its dry run's ``input_specs`` gives meta tensors here
+(:mod:`repro_torch.launch.dryrun`).
 """
 
 from __future__ import annotations
@@ -146,3 +147,35 @@ def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> tuple:
             "sub-quadratic attention (skip recorded in DESIGN.md)"
         )
     return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Meta-tensor stand-ins for every model input (no allocation): the
+    reference's ``ShapeDtypeStruct`` tree, with token ids, labels and the
+    cache index int64 where the reference's are int32 (the port's
+    embedding and loss index with int64)."""
+    import torch
+
+    B, S = shape.global_batch, shape.seq_len
+
+    def spec(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    specs = {}
+    if shape.kind == "train":
+        specs["tokens"] = spec((B, S), torch.int64)
+        specs["labels"] = spec((B, S), torch.int64)
+    elif shape.kind == "prefill":
+        specs["tokens"] = spec((B, S), torch.int64)
+    else:  # decode: one new token against a seq_len cache
+        specs["tokens"] = spec((B, 1), torch.int64)
+        specs["cache_index"] = spec((), torch.int64)
+    if cfg.family == "encdec":
+        # the stubbed audio frontend's frame embeddings
+        specs["enc_frames"] = spec((B, cfg.enc_seq, cfg.d_model),
+                                   torch.bfloat16)
+    if cfg.family == "vlm":
+        # the stubbed vision frontend's patch embeddings
+        specs["vis_embed"] = spec((B, cfg.vis_seq, cfg.d_model),
+                                  torch.bfloat16)
+    return specs

@@ -3,7 +3,9 @@
 Every entry point of the port takes ``device=None``, which means the
 card.  Only an explicit ``device="cpu"`` runs on the CPU (the tests do
 that); asking for the card where there is none raises — nothing quietly
-carries on on the host.
+carries on on the host.  An explicit ``device="meta"`` (shapes and
+dtypes, no storage) is the dry run's (:mod:`repro_torch.launch.dryrun`):
+never a default, it allocates and launches nothing.
 """
 
 from __future__ import annotations
@@ -18,14 +20,15 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
-    """``None`` → ``cuda``.  Raises when a CUDA device is asked for and
+    """``None`` → ``cuda``; ``"cpu"`` and ``"meta"`` only when asked for.
+    Raises when a CUDA device is asked for and
     ``torch.cuda.is_available()`` is False."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run the plain PyTorch path")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

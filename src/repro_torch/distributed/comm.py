@@ -53,17 +53,31 @@ place of one per layer and microbatch).
 
 All reductions are sums unless ``op="max"`` (gloo has no average);
 callers divide.
+
+The dry run (:mod:`repro_torch.launch.dryrun`) traces one rank's step on
+the meta device over a mesh that exists only as a
+:class:`~.sharding.MeshShape`: there :func:`mesh_group`,
+:func:`model_comm` and :func:`expert_comm` give :class:`MeshGroup` groups,
+and a :class:`Collectives` over one takes its size from the axes and its
+rank as mesh rank 0's, makes no ``torch.distributed`` call and returns
+outputs of the right shapes (on meta tensors, empty ones).  Every
+collective, traced or issued, reports its kind and result bytes to the
+active op counter (:mod:`repro_torch.roofline.sink`).
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
 import torch.distributed as dist
 
-from .sharding import EXPERT_AXIS, expert_axis_size, ep_takes_experts
+from ..roofline import sink
+from .sharding import (
+    EXPERT_AXIS, axis_sizes, expert_axis_size, ep_takes_experts,
+)
 
 KINDS = ("all_reduce", "reduce_scatter", "all_gather", "all_to_all",
          "send_recv")
@@ -88,6 +102,26 @@ def axis_groups(mesh, axes) -> list:
     return ranks.permute(others + inner).reshape(-1, n).tolist()
 
 
+@dataclass(frozen=True)
+class MeshGroup:
+    """The group over ``axes`` of a mesh with no process groups (a
+    :class:`~.sharding.MeshShape`): mesh rank 0's, the rank the dry run
+    traces.  A :class:`Collectives` over one makes no call."""
+
+    mesh: object
+    axes: tuple
+
+    @property
+    def size(self) -> int:
+        sizes = axis_sizes(self.mesh)
+        return math.prod(sizes[a] for a in self.axes)
+
+
+def _traced(mesh) -> bool:
+    """A mesh without process groups (a ``MeshShape``): the dry run's."""
+    return not hasattr(mesh, "get_group")
+
+
 def mesh_group(mesh, axes):
     """The process group over the mesh axes ``axes`` (one name or a tuple,
     e.g. the data-parallel ``("pod", "data")``): the group of the one such
@@ -101,6 +135,8 @@ def mesh_group(mesh, axes):
     sizes = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
     present = [a for a in axes if a in sizes]
     wide = tuple(a for a in present if sizes[a] > 1)
+    if _traced(mesh):
+        return MeshGroup(mesh, wide or tuple(present[:1]))
     if len(wide) <= 1:
         return mesh.get_group(wide[0] if wide else present[0])
     if math.prod(sizes[a] for a in wide) == dist.get_world_size():
@@ -116,56 +152,72 @@ def mesh_group(mesh, axes):
 
 
 class Collectives:
-    """One group's collectives, counted by kind in :attr:`counts`."""
+    """One group's collectives, counted by kind in :attr:`counts`.  Over a
+    :class:`MeshGroup` (the dry run) nothing is issued: the results have
+    the right shapes and ``t``'s values are left as they are."""
 
     def __init__(self, group=None):
         self.group = group if group is not None else dist.group.WORLD
-        self.size = dist.get_world_size(self.group)
-        self.rank = dist.get_rank(self.group)
+        self.traced = isinstance(self.group, MeshGroup)
+        if self.traced:
+            self.size, self.rank = self.group.size, 0
+        else:
+            self.size = dist.get_world_size(self.group)
+            self.rank = dist.get_rank(self.group)
         self.counts = dict.fromkeys(KINDS, 0)
+
+    def _count(self, kind: str, out: torch.Tensor) -> None:
+        self.counts[kind] += 1
+        sink.collective(kind, out.numel() * out.element_size())
 
     def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """Sum (or with ``op="max"`` take the maximum of) ``t`` over the
         group, in place; returns ``t``."""
-        dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max"
-                        else dist.ReduceOp.SUM, group=self.group)
-        self.counts["all_reduce"] += 1
+        if not self.traced:
+            dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max"
+                            else dist.ReduceOp.SUM, group=self.group)
+        self._count("all_reduce", t)
         return t
 
     def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
         """Sum ``t`` over the group and return this rank's block of its
         leading dim (a multiple of the group size)."""
         out = t.new_empty((t.shape[0] // self.size, *t.shape[1:]))
-        dist.reduce_scatter_tensor(out, t.contiguous(), group=self.group)
-        self.counts["reduce_scatter"] += 1
+        if not self.traced:
+            dist.reduce_scatter_tensor(out, t.contiguous(), group=self.group)
+        self._count("reduce_scatter", out)
         return out
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank's ``t`` stacked along the leading dim, rank-major."""
         out = t.new_empty((t.shape[0] * self.size, *t.shape[1:]))
-        dist.all_gather_into_tensor(out, t.contiguous(), group=self.group)
-        self.counts["all_gather"] += 1
+        if not self.traced:
+            dist.all_gather_into_tensor(out, t.contiguous(),
+                                        group=self.group)
+        self._count("all_gather", out)
         return out
 
     def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
         """Block ``j`` of ``t``'s leading dim goes to rank ``j``; block
         ``i`` of the result came from rank ``i``."""
         out = torch.empty_like(t)
-        dist.all_to_all_single(out, t.contiguous(), group=self.group)
-        self.counts["all_to_all"] += 1
+        if not self.traced:
+            dist.all_to_all_single(out, t.contiguous(), group=self.group)
+        self._count("all_to_all", out)
         return out
 
     def send_recv(self, send: torch.Tensor, dst: int, recv: torch.Tensor,
                   src: int) -> None:
         """One ring hop: ``send`` to group rank ``dst`` while ``recv``
         (contiguous, written in place) arrives from group rank ``src``."""
-        ranks = dist.get_process_group_ranks(self.group)
-        ops = [dist.P2POp(dist.isend, send.contiguous(), ranks[dst],
-                          self.group),
-               dist.P2POp(dist.irecv, recv, ranks[src], self.group)]
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
-        self.counts["send_recv"] += 1
+        if not self.traced:
+            ranks = dist.get_process_group_ranks(self.group)
+            ops = [dist.P2POp(dist.isend, send.contiguous(), ranks[dst],
+                              self.group),
+                   dist.P2POp(dist.irecv, recv, ranks[src], self.group)]
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        self._count("send_recv", recv)
 
 
 def expert_comm(mesh, cfg) -> Optional[Collectives]:
@@ -178,7 +230,7 @@ def expert_comm(mesh, cfg) -> Optional[Collectives]:
     create no group and may be called in any order."""
     if mesh is None or not ep_takes_experts(cfg, expert_axis_size(mesh)):
         return None
-    return Collectives(mesh.get_group(EXPERT_AXIS))
+    return Collectives(mesh_group(mesh, EXPERT_AXIS))
 
 
 def model_comm(mesh) -> Optional[Collectives]:
@@ -189,7 +241,7 @@ def model_comm(mesh) -> Optional[Collectives]:
     sizes = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
     if sizes.get("model", 1) <= 1:
         return None
-    return Collectives(mesh.get_group("model"))
+    return Collectives(mesh_group(mesh, "model"))
 
 
 # ---------------------------------------------------------------------------

@@ -180,6 +180,20 @@ def needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+def all_on_meta(*tensors) -> bool:
+    """True when every tensor lies on the meta device (the dry run:
+    shapes and dtypes, no storage) — where a wrapper returns empty
+    outputs of the right shapes, launches nothing and reports the
+    kernel's cost to the active op counter (``roofline.sink``)."""
+    return all(t.device.type == "meta" for t in tensors)
+
+
+def nbytes(*tensors) -> int:
+    """The bytes of ``tensors`` (``None`` entries skipped)."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
 def all_on_cpu(*tensors) -> bool:
     """True when every tensor lies on the CPU — the one case in which a
     wrapper runs its plain version."""

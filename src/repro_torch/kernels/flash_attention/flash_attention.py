@@ -8,7 +8,9 @@ loop bounded per query tile to the key blocks that meet the triangle or
 band.  bf16 runs on the tensor cores, fp32 on the CUDA cores; both take
 every head dim that is a multiple of 16 up to 128.  CPU tensors run the
 plain version (:func:`~.ref.attention_ref`, which autograd differentiates);
-CUDA tensors launch the kernel or raise.  On CUDA tensors in grad mode
+CUDA tensors launch the kernel or raise; meta tensors (the dry run)
+return empty outputs and report the kernel's cost to the active op
+counter (:mod:`repro_torch.roofline.sink`).  On CUDA tensors in grad mode
 the call goes through :class:`FlashAttentionFn`: the forward also writes
 each row's log-sum-exp, and the backward launches the backward kernels
 (dq with the row sums ``D = rowsum(dO ⊙ O)``, then dk/dv, no atomics;
@@ -21,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from ...roofline import sink
 from .ref import attention_ref
 
 #: kernel launches since the last reset (plain ints; callers zero them)
@@ -54,9 +57,35 @@ def _check(q, k, v) -> int:
     return code
 
 
+def visible_pairs(S: int, T: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs the masks leave, per batch row and head
+    (query and key positions from 0)."""
+    qp = torch.arange(S, dtype=torch.int64)
+    hi = torch.clamp(qp + 1, max=T) if causal else torch.full_like(qp, T)
+    lo = torch.clamp(qp - window + 1, min=0) if window > 0 \
+        else torch.zeros_like(qp)
+    return int(torch.clamp(hi - lo, min=0).sum())
+
+
+def _cost(q, k, causal: bool, window: int, per_pair: int) -> float:
+    """``per_pair``·dh FLOPs per visible pair and head (4 forward: two
+    matmuls; 10 backward: five)."""
+    B, S, H, dh = q.shape
+    return float(per_pair * dh * B * H
+                 * visible_pairs(S, k.shape[1], causal, window))
+
+
 def _forward(q, k, v, causal: bool, window: int, with_lse: bool):
     """Launch the forward kernel; returns ``(out, lse or None)``."""
     global launches
+    if _build.all_on_meta(q, k, v):
+        out = torch.empty_like(q)
+        lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]),
+                          dtype=torch.float32, device=q.device) \
+            if with_lse else None
+        sink.kernel("flash_attention", _cost(q, k, causal, window, 4),
+                    _build.nbytes(q, k, v, out, lse))
+        return out, lse
     code = _check(q, k, v)
     B, S, H, dh = q.shape
     T, KV = k.shape[1], k.shape[2]
@@ -81,6 +110,11 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     forward's inputs, its output ``out`` and row log-sum-exp ``lse`` (B,
     H, S) and ``dout`` = dL/dout."""
     global bwd_launches
+    if _build.all_on_meta(q, k, v, out, lse, dout):
+        grads = tuple(torch.empty_like(t) for t in (q, k, v))
+        sink.kernel("flash_attention_bwd", _cost(q, k, causal, window, 10),
+                    _build.nbytes(q, k, v, out, lse, dout, *grads))
+        return grads
     code = _check(q, k, v)
     _build.cuda_inputs("flash_attention", q, out, dout)
     if out.shape != q.shape or dout.shape != q.shape or lse.shape != (

@@ -7,7 +7,9 @@ buffers ``(E, C, d)``, any C, d and f multiples of 8.  On the card one
 call runs two grouped GEMMs, gate-up into a scratch ``h (E, C, f)`` and
 down into the output, with the tiles, ring depth and K splits of
 :func:`launch_plan`.  CPU tensors run the plain version
-(:func:`~.ref.moe_gmm_ref`); CUDA tensors launch the kernels or raise.
+(:func:`~.ref.moe_gmm_ref`); CUDA tensors launch the kernels or raise;
+meta tensors (the dry run) return empty outputs and report the kernels'
+cost to the active op counter (:mod:`repro_torch.roofline.sink`).
 ``launches`` counts wrapper calls that launched (one per call on the
 card, however many kernels it issues).
 
@@ -31,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
+from ...roofline import sink
 from .ref import moe_gmm_ref
 
 #: calls that launched the kernels since the last reset (plain ints;
@@ -220,6 +223,13 @@ def backward_plan(E: int, C: int, d: int, f: int,
 
 def _forward(buf, w1, w3, w2) -> torch.Tensor:
     global launches
+    if _build.all_on_meta(buf, w1, w3, w2):
+        # three (C, d) × (d, f)-sized products per expert, 2 FLOPs each
+        E, C, d = buf.shape
+        out = torch.empty_like(buf)
+        sink.kernel("moe_gmm", 6.0 * E * C * d * w1.shape[-1],
+                    _build.nbytes(buf, w1, w3, w2, out))
+        return out
     code = _build.cuda_inputs("moe_gmm", buf, w1, w3, w2)
     E, C, d, f = _check_shapes(buf, w1, w3, w2)
     out = torch.empty_like(buf)
@@ -235,6 +245,14 @@ def moe_gmm_bwd(buf, w1, w3, w2, dout) -> tuple:
     """Launch the backward kernels: ``(dbuf, dw1, dw3, dw2)`` in buf's
     dtype for ``dout`` = dL/dout."""
     global bwd_launches
+    if _build.all_on_meta(buf, w1, w3, w2, dout):
+        # eight products of the forward's size: a, b and dh, dw2, dw1 and
+        # dw3, dbuf's two
+        E, C, d = buf.shape
+        grads = tuple(torch.empty_like(t) for t in (buf, w1, w3, w2))
+        sink.kernel("moe_gmm_bwd", 16.0 * E * C * d * w1.shape[-1],
+                    _build.nbytes(buf, w1, w3, w2, dout, *grads))
+        return grads
     code = _build.cuda_inputs("moe_gmm", buf, w1, w3, w2, dout)
     E, C, d, f = _check_shapes(buf, w1, w3, w2)
     if dout.shape != buf.shape or dout.data_ptr() % 16:

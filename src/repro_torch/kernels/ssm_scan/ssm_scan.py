@@ -6,7 +6,9 @@ Port of the Pallas kernel ``repro/kernels/ssm_scan/ssm_scan.py``:
 fp32.  Unlike the Pallas kernel the state may start from ``h0`` and the
 last state is returned, so the model can chain its L-chunks.  CPU
 tensors run the plain version (:func:`~.ref.ssm_scan_ref`, which autograd
-differentiates); CUDA tensors launch the kernel or raise.  On CUDA
+differentiates); CUDA tensors launch the kernel or raise; meta tensors
+(the dry run) return empty outputs and report the kernel's cost to the
+active op counter (:mod:`repro_torch.roofline.sink`).  On CUDA
 tensors in grad mode the call goes through :class:`SsmScanFn`, whose
 backward launches the backward kernel (the states recomputed and kept on
 chip inside the launch, under :func:`bwd_plan`, ``dC`` summed over
@@ -23,6 +25,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import _build
+from ...roofline import sink
 from .ref import ssm_scan_ref
 
 #: kernel launches since the last reset (plain ints; callers zero them)
@@ -99,6 +102,15 @@ def _ptr(t: Optional[torch.Tensor]):
 def _forward(dA, dBx, C, h0) -> tuple:
     """Launch the forward kernel; returns ``(y, h_last)``."""
     global launches
+    if _build.all_on_meta(*[t for t in (dA, dBx, C, h0) if t is not None]):
+        # ~4 FLOPs per state and step: h = dA·h + dBx, y += h·C
+        B, L, Di, N = dA.shape
+        y = torch.empty((B, L, Di), dtype=torch.float32, device=dA.device)
+        h_out = torch.empty((B, Di, N), dtype=torch.float32,
+                            device=dA.device)
+        sink.kernel("ssm_scan", 4.0 * B * L * Di * N,
+                    _build.nbytes(dA, dBx, C, h0, y, h_out))
+        return y, h_out
     B, L, Di, N = _check(dA, dBx, C, h0)
     y = torch.empty((B, L, Di), dtype=torch.float32, device=dA.device)
     h_out = torch.empty((B, Di, N), dtype=torch.float32, device=dA.device)
@@ -116,6 +128,15 @@ def ssm_scan_bwd(dA, dBx, C, h0, dy, dh_last=None) -> tuple:
     forward's inputs, ``dy`` = dL/dy (B, L, Di) and ``dh_last`` = dL/dh_last
     (B, Di, N) or ``None`` (zero); ``dh0`` is ``None`` when ``h0`` is."""
     global bwd_launches
+    if _build.all_on_meta(*[t for t in (dA, dBx, C, h0, dy, dh_last)
+                            if t is not None]):
+        # ~10 FLOPs per state and step
+        grads = (torch.empty_like(dA), torch.empty_like(dBx),
+                 torch.empty_like(C),
+                 None if h0 is None else torch.empty_like(h0))
+        sink.kernel("ssm_scan_bwd", 10.0 * dA.numel(),
+                    _build.nbytes(dA, dBx, C, h0, dy, dh_last, *grads))
+        return grads
     B, L, Di, N = _check(dA, dBx, C, h0)
     extra = [t for t in (dy, dh_last) if t is not None]
     _build.cuda_inputs("ssm_scan", dA, *extra)

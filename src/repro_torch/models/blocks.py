@@ -28,6 +28,28 @@ from . import layers as L
 from . import moe as M
 from . import ssm as S
 
+def layer_shapes(cfg, dtype, kind: str) -> dict:
+    return layer_init(L._MetaGenerator(), cfg, dtype, kind)
+
+
+def layer_cache_shapes(cfg, kind: str, B: int, cache_len: int,
+                       dtype) -> dict:
+    """One layer's decode cache as meta tensors: ``{"k", "v"}`` (B, T, KV,
+    dh) for self attention (a sliding-window config keeps only the
+    window, a ring buffer), the mamba heads' ``{"conv", "h"}``, nothing
+    for a ``cross`` layer (its K/V are ``cross_kv``)."""
+    out = {}
+    if kind in ("dense", "moe", "hybrid", "dec"):
+        T = min(cache_len, cfg.sliding_window) \
+            if cfg.sliding_window > 0 else cache_len
+        shape = (B, T, cfg.n_kv_heads, cfg.head_dim)
+        out["k"] = torch.empty(shape, dtype=dtype, device="meta")
+        out["v"] = torch.empty(shape, dtype=dtype, device="meta")
+    if kind in ("ssm", "hybrid"):
+        out.update(S.ssm_cache_shapes(cfg, B, dtype))
+    return out
+
+
 def layer_init(gen: torch.Generator, cfg, dtype, kind: str) -> dict:
     d, nk = cfg.d_model, cfg.norm
     out = {"ln1": L.norm_init(gen, d, nk, dtype)}
@@ -49,9 +71,9 @@ def layer_init(gen: torch.Generator, cfg, dtype, kind: str) -> dict:
 
 
 def _ffn(p: dict, cfg, h: torch.Tensor, kind: str, tp=None,
-         ep=None, sp: bool = False) -> torch.Tensor:
+         ep=None, sp: bool = False, dp=None) -> torch.Tensor:
     if kind == "moe":
-        return M.moe_apply(p["moe"], cfg, h, tp=tp, ep=ep, sp=sp)
+        return M.moe_apply(p["moe"], cfg, h, tp=tp, ep=ep, sp=sp, dp=dp)
     return L.mlp_apply(p["mlp"], h, cfg.act, tp, sp)
 
 
@@ -67,13 +89,15 @@ def layer_apply(p: dict, cfg, x: torch.Tensor, kind: str, *,
                 causal: bool = True, schedule: str = "masked",
                 q_chunk: int = 1024, k_chunk: int = 1024,
                 ssm_chunk: int = 256, tp=None, ep=None, sp: bool = False,
-                ctx_sp: bool = False) -> torch.Tensor:
+                ctx_sp: bool = False, dp=None) -> torch.Tensor:
     """One block forward (whole sequence); ``ctx`` (B, T, d) is what the
     ``dec`` and ``cross`` kinds attend to.  ``tp``: a model-axis
     ``Collectives`` when ``p`` is one model rank's compute shards; ``ep``:
-    an expert-axis one when the MoE layer takes the EP round.  ``sp``:
-    ``x`` is this model rank's block of the sequence (the result is too);
-    ``ctx_sp``: ``ctx`` is this rank's block of the context."""
+    an expert-axis one when the MoE layer takes the EP round; ``dp``: a
+    data-axis one, over which the MoE layer sizes capacity and slot
+    positions (``moe.moe_apply``).  ``sp``: ``x`` is this model rank's
+    block of the sequence (the result is too); ``ctx_sp``: ``ctx`` is this
+    rank's block of the context."""
     h = _norm(p["ln1"], x, cfg, tp, sp)
     if kind == "ssm":
         return x + S.ssm_apply(p["ssm"], cfg, h, chunk=ssm_chunk, tp=tp,
@@ -95,12 +119,13 @@ def layer_apply(p: dict, cfg, x: torch.Tensor, kind: str, *,
         x = x + L.attn_apply(p["cross"], cfg, h, kv_src=ctx, kv_sp=ctx_sp,
                              causal=False, **akw)
     h = _norm(p["ln2"], x, cfg, tp, sp)
-    return x + _ffn(p, cfg, h, kind, tp, ep, sp)
+    return x + _ffn(p, cfg, h, kind, tp, ep, sp, dp)
 
 
 def layer_decode_apply(p: dict, cfg, x: torch.Tensor, cache: dict,
                        cache_index, kind: str, *,
-                       ctx_kv: Optional[dict] = None, tp=None, ep=None):
+                       ctx_kv: Optional[dict] = None, tp=None, ep=None,
+                       dp=None):
     """One block, one token; ``cache`` = this layer's {"k", "v"} and/or
     {"conv", "h"} ({} for a ``cross`` layer), updated IN PLACE; ``ctx_kv``
     = this layer's precomputed cross K/V {"k", "v"} (B, T, KV, dh) for
@@ -113,7 +138,7 @@ def layer_decode_apply(p: dict, cfg, x: torch.Tensor, cache: dict,
     model rank's (q/k/v column-parallel on its heads, ``wo``, the FFN and
     the mamba ``out_proj`` row-parallel); ``ep``: an expert-axis one when
     the MoE layer takes the EP round (inside the tensor-parallel region
-    when both are given)."""
+    when both are given); ``dp`` as in :func:`layer_apply`."""
     B = x.shape[0]
     h = L.norm_apply(p["ln1"], x, cfg.norm)
     if kind == "ssm":
@@ -122,7 +147,7 @@ def layer_decode_apply(p: dict, cfg, x: torch.Tensor, cache: dict,
     if kind == "cross":
         x = x + L.cross_decode_apply(p["attn"], cfg, h, ctx_kv, tp)
         h = L.norm_apply(p["ln2"], x, cfg.norm)
-        return x + _ffn(p, cfg, h, kind, tp, ep), cache
+        return x + _ffn(p, cfg, h, kind, tp, ep, dp=dp), cache
     T = cache["k"].shape[1]
     ci = L._per_row(cache_index, B, x.device)
     idx = torch.remainder(ci, T) if cfg.sliding_window > 0 else ci
@@ -150,15 +175,15 @@ def layer_decode_apply(p: dict, cfg, x: torch.Tensor, cache: dict,
         h = L.norm_apply(p["lnx"], x, cfg.norm)
         x = x + L.cross_decode_apply(p["cross"], cfg, h, ctx_kv, tp)
     h = L.norm_apply(p["ln2"], x, cfg.norm)
-    return x + _ffn(p, cfg, h, kind, tp, ep), cache
+    return x + _ffn(p, cfg, h, kind, tp, ep, dp=dp), cache
 
 
 def layer_prefill_apply(p: dict, cfg, x: torch.Tensor, cache: dict,
                         cache_index, count, kind: str, tp=None, ep=None,
-                        sp: bool = False):
+                        sp: bool = False, dp=None):
     """One block over a ``(B, C)`` token span (chunked prefill); the
     layer's cache is updated IN PLACE.  Returns ``(x, cache)``.  ``tp``
-    and ``ep`` as in :func:`layer_decode_apply`; ``sp`` as in
+    and ``ep`` as in :func:`layer_decode_apply`; ``sp`` and ``dp`` as in
     :func:`layer_apply` (the K/V written to the cache are the whole
     chunk's)."""
     if kind not in ("dense", "moe"):
@@ -170,4 +195,4 @@ def layer_prefill_apply(p: dict, cfg, x: torch.Tensor, cache: dict,
                                    count, tp, sp)
     x = x + a
     h = _norm(p["ln2"], x, cfg, tp, sp)
-    return x + _ffn(p, cfg, h, kind, tp, ep, sp), cache
+    return x + _ffn(p, cfg, h, kind, tp, ep, sp, dp), cache

@@ -45,8 +45,17 @@ NEG_INF = -1e30
 # ---------------------------------------------------------------------------
 
 
+class _MetaGenerator:
+    """Stands in for a generator where only shapes and dtypes are wanted:
+    every ``*_init`` given one builds its tree of meta tensors, which is
+    that init's ``*_shapes`` twin (the reference's ``ShapeDtypeStruct``
+    trees)."""
+
+    device = torch.device("meta")
+
+
 def _norm_init(gen: torch.Generator, shape, scale, dtype) -> torch.Tensor:
-    if gen.device.type == "meta":  # shapes only (model.param_shapes)
+    if gen.device.type == "meta":  # shapes only (the *_shapes twins)
         return torch.empty(shape, dtype=dtype, device="meta")
     return (torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=gen.device) * scale).to(dtype)
@@ -57,6 +66,10 @@ def dense_init(gen, d_in: int, d_out: int, bias: bool, dtype) -> dict:
     if bias:
         out["b"] = torch.zeros((d_out,), dtype=dtype, device=gen.device)
     return out
+
+
+def dense_shapes(d_in: int, d_out: int, bias: bool, dtype) -> dict:
+    return dense_init(_MetaGenerator(), d_in, d_out, bias, dtype)
 
 
 def dense_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -76,6 +89,10 @@ def norm_init(gen, d: int, kind: str, dtype) -> dict:
     if kind == "layernorm":
         out["bias"] = torch.zeros((d,), dtype=dtype, device=gen.device)
     return out
+
+
+def norm_shapes(d: int, kind: str, dtype) -> dict:
+    return norm_init(_MetaGenerator(), d, kind, dtype)
 
 
 def norm_apply(p: dict, x: torch.Tensor, kind: str, eps: float = 1e-5):
@@ -131,6 +148,10 @@ def mlp_init(gen, d: int, f: int, act: str, dtype) -> dict:
     return {"w1": w1, "b1": torch.zeros((f,), dtype=dtype, device=gen.device),
             "w2": _norm_init(gen, (f, d), f ** -0.5, dtype),
             "b2": torch.zeros((d,), dtype=dtype, device=gen.device)}
+
+
+def mlp_shapes(d: int, f: int, act: str, dtype) -> dict:
+    return mlp_init(_MetaGenerator(), d, f, act, dtype)
 
 
 def mlp_apply(p: dict, x: torch.Tensor, act: str, tp=None,
@@ -195,6 +216,12 @@ def attn_init(gen, cfg, dtype) -> dict:
         "wv": dense_init(gen, d, KV * h, bias, dtype),
         "wo": dense_init(gen, H * h, d, False, dtype),
     }
+
+
+def attn_shapes(cfg, dtype, cross: bool = False) -> dict:
+    """``cross`` is accepted for the reference's signature: cross
+    attention has the same projections."""
+    return attn_init(_MetaGenerator(), cfg, dtype)
 
 
 def tp_heads(p: dict, cfg, tp) -> tuple:

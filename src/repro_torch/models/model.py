@@ -48,8 +48,8 @@ from ..distributed.comm import (
     reduce_from_tp,
 )
 from ..distributed.sharding import (
-    current_mesh, data_size, expert_axis_size, model_size, seq_sharded,
-    shard_act, shard_logits, tp_local_config,
+    current_mesh, data_size, expert_axis_size, mesh_context, model_size,
+    seq_sharded, shard_act, shard_logits, tp_local_config,
 )
 from . import blocks as B
 from . import layers as L
@@ -145,17 +145,11 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return _init(cfg, gen)
 
 
-class _MetaGenerator:
-    """Stands in for a generator where only shapes and dtypes are wanted."""
-
-    device = torch.device("meta")
-
-
 def param_shapes(cfg: ModelConfig) -> dict:
     """The parameter tree as meta tensors — shapes and dtypes, no storage:
     the counterpart of the reference's ``ShapeDtypeStruct`` tree (the
     train step counts its leaves for the gradient-bucket plan)."""
-    return _init(cfg, _MetaGenerator())
+    return _init(cfg, L._MetaGenerator())
 
 
 def _init(cfg: ModelConfig, gen) -> dict:
@@ -211,7 +205,8 @@ def _n_layers(stack: dict) -> int:
 def forward(params: dict, cfg: ModelConfig, batch: dict, *,
             schedule: str = "masked", q_chunk: int = 1024,
             k_chunk: int = 1024, ssm_chunk: int = 256, remat: bool = True,
-            last_only: bool = False, tp=None, ep=None) -> torch.Tensor:
+            last_only: bool = False, tp=None, ep=None,
+            dp=None) -> torch.Tensor:
     """Logits for (B, S) tokens; encdec also reads ``batch["enc_frames"]``
     (B, enc_seq, d), run through the non-causal encoder into the
     decoder's cross attention, and vlm ``batch["vis_embed"]`` (B, vis_seq,
@@ -246,7 +241,10 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     ``remat`` recompute, which runs where the mesh context is unset,
     takes the same path.  Where ``tp``'s size divides S the layers run
     sequence-parallel (the module docstring); the logits are whole over
-    the sequence either way."""
+    the sequence either way.  ``dp``: the data-axis ``Collectives`` when
+    ``batch`` is this rank's rows of a data-parallel batch (no default):
+    the MoE layers size capacity and slot positions over the whole batch
+    (``moe.moe_apply``), handed to every layer like ``tp``."""
     if tp is None:
         tp = model_comm(current_mesh())
     if ep is None:
@@ -254,7 +252,7 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     sp = seq_sharded(tp, batch["tokens"].shape[1])
     x = _embed(params, batch["tokens"], tp, sp)
     kw = dict(schedule=schedule, q_chunk=q_chunk, k_chunk=k_chunk,
-              ssm_chunk=ssm_chunk, tp=tp, ep=ep, sp=sp)
+              ssm_chunk=ssm_chunk, tp=tp, ep=ep, sp=sp, dp=dp)
     layer = B.layer_apply
     if remat and torch.is_grad_enabled():
         def layer(*a, **k):
@@ -372,20 +370,10 @@ def init_cache(cfg: ModelConfig, bsz: int, cache_len: int,
         if kind == "enc":
             continue
         lead = (n, inner) if inner else (n,)
-        layer = {}
-        if kind not in ("ssm", "cross"):
-            T = min(cache_len, cfg.sliding_window) \
-                if cfg.sliding_window > 0 else cache_len
-            shape = lead + (bsz, T, cfg.n_kv_heads, cfg.head_dim)
-            layer["k"] = torch.zeros(shape, dtype=dt, device=dev)
-            layer["v"] = torch.zeros(shape, dtype=dt, device=dev)
-        if kind in ("ssm", "hybrid"):
-            di = cfg.d_inner
-            layer["conv"] = torch.zeros(lead + (bsz, cfg.conv_width - 1, di),
-                                        dtype=dt, device=dev)
-            layer["h"] = torch.zeros(lead + (bsz, di, cfg.ssm_state),
-                                     dtype=torch.float32, device=dev)
-        out[name] = layer
+        out[name] = {k: torch.zeros(lead + tuple(s.shape), dtype=s.dtype,
+                                    device=dev)
+                     for k, s in B.layer_cache_shapes(
+                         cfg, kind, bsz, cache_len, dt).items()}
     if cfg.family in ("encdec", "vlm"):
         n, T = (cfg.n_layers, cfg.enc_seq) if cfg.family == "encdec" \
             else (cfg.n_layers // cfg.cross_every, cfg.vis_seq)
@@ -395,8 +383,15 @@ def init_cache(cfg: ModelConfig, bsz: int, cache_len: int,
     return out
 
 
+def cache_shapes(cfg: ModelConfig, bsz: int, cache_len: int) -> dict:
+    """The whole cache tree of :func:`init_cache` as meta tensors, on no
+    mesh (the reference's ``cache_shapes``)."""
+    with mesh_context(None):
+        return init_cache(cfg, bsz, cache_len, device="meta")
+
+
 def decode_step(params: dict, cfg: ModelConfig, cache: dict,
-                batch: dict, tp=None, ep=None) -> tuple:
+                batch: dict, tp=None, ep=None, dp=None) -> tuple:
     """One token for every sequence against the cache.
 
     batch = {"tokens": (B, 1), "cache_index": () or (B,)} — returns
@@ -416,7 +411,8 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     inside the tensor-parallel region, ``params`` holding this rank's
     ``E/S`` experts × ``d_ff/m``, and the ``B`` rows of this data rank
     (alike on its expert and model ranks) are padded to a multiple of the
-    expert axis inside the round."""
+    expert axis inside the round.  ``dp``: the data-axis ``Collectives``
+    when ``batch`` is this data rank's rows (as in :func:`forward`)."""
     if tp is None:
         tp = model_comm(current_mesh())
     if ep is None:
@@ -430,30 +426,31 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
             for j in range(_n_layers(gp)):
                 x, _ = B.layer_decode_apply(_layer(gp, j), cfg, x,
                                             _layer(gc, j), ci, "dense",
-                                            tp=tp, ep=ep)
+                                            tp=tp, ep=ep, dp=dp)
             x, _ = B.layer_decode_apply(
                 _layer(params["cross_layers"], gi), cfg, x, {}, ci, "cross",
-                ctx_kv=_layer(cache["cross_kv"], gi), tp=tp, ep=ep)
+                ctx_kv=_layer(cache["cross_kv"], gi), tp=tp, ep=ep, dp=dp)
     elif cfg.family == "encdec":
         stack = params["dec_layers"]
         for i in range(_n_layers(stack)):
             x, _ = B.layer_decode_apply(
                 _layer(stack, i), cfg, x, _layer(cache["dec_layers"], i), ci,
-                "dec", ctx_kv=_layer(cache["cross_kv"], i), tp=tp, ep=ep)
+                "dec", ctx_kv=_layer(cache["cross_kv"], i), tp=tp, ep=ep,
+                dp=dp)
     else:
         kind = _plan(cfg)[0][1]
         stack = params["layers"]
         for i in range(_n_layers(stack)):
             x, _ = B.layer_decode_apply(_layer(stack, i), cfg, x,
                                         _layer(cache["layers"], i), ci, kind,
-                                        tp=tp, ep=ep)
+                                        tp=tp, ep=ep, dp=dp)
     x = L.norm_apply(params["final_norm"], x, cfg.norm)
     return shard_logits((copy_to_tp(x, tp) @ _head(params, cfg))[:, 0]), \
         cache
 
 
 def prefill_step(params: dict, cfg: ModelConfig, cache: dict,
-                 batch: dict, tp=None, ep=None) -> tuple:
+                 batch: dict, tp=None, ep=None, dp=None) -> tuple:
     """Write a span of prompt tokens through the model at per-row cache
     indices — the chunked-prefill primitive of the continuous batcher.
 
@@ -474,7 +471,8 @@ def prefill_step(params: dict, cfg: ModelConfig, cache: dict,
     prefill there, each rank's partial sums reduced alike whatever the
     chunking.  Where the model axis divides C the span runs
     sequence-parallel (each rank's rows of the chunk between layers; the
-    K/V written to the caches are the whole chunk's)."""
+    K/V written to the caches are the whole chunk's).  ``dp`` as in
+    :func:`decode_step`."""
     if tp is None:
         tp = model_comm(current_mesh())
     if ep is None:
@@ -499,7 +497,7 @@ def prefill_step(params: dict, cfg: ModelConfig, cache: dict,
         x, _ = B.layer_prefill_apply(_layer(stack, i), cfg, x,
                                      _layer(cache["layers"], i),
                                      cache_index, count, kind, tp=tp, ep=ep,
-                                     sp=sp)
+                                     sp=sp, dp=dp)
     x = L.norm_apply(params["final_norm"], x, cfg.norm)
     # the head is column-parallel: every row's last lane, on every rank
     x = gather_from_sp(x, tp) if sp else copy_to_tp(x, tp)

@@ -34,6 +34,12 @@ and the re-route read every token, as in the reference, so the drops are
 the reference's (routing a block alone would not be), and the output
 leaves by a reduce-scatter onto this rank's block (the EP round's whole
 result by a slice).
+
+On a data axis of ``D`` ranks (``dp``) each rank routes its rows of the
+batch, but capacity and slot positions are the whole batch's, as in the
+reference's jitted step, where the batch is one global array: the ranks'
+per-(choice, expert) pair counts are all-gathered once per admission
+round (:func:`_dp_offsets`).
 """
 
 from __future__ import annotations
@@ -47,7 +53,11 @@ from ..distributed.comm import copy_to_tp, enter_tp, expert_comm, leave_tp
 from ..distributed.sharding import current_mesh
 from ..kernels.moe_dispatch.ops import dispatch_combine
 from ..sched import ExpertCapacityProvider
-from .layers import _norm_init
+from .layers import _MetaGenerator, _norm_init
+
+
+def moe_shapes(cfg, dtype) -> dict:
+    return moe_init(_MetaGenerator(), cfg, dtype)
 
 
 def moe_init(gen: torch.Generator, cfg, dtype) -> dict:
@@ -70,7 +80,8 @@ def _positions_in_expert(expert_ids: torch.Tensor, E: int,
                          base: torch.Tensor = None) -> torch.Tensor:
     """Running slot index of each (token, choice) within its expert,
     counted choice-major (all k=0 first) so primary choices win slots.
-    ``base``: (E,) pre-occupied slots per expert (round 2)."""
+    ``base``: (E,) pre-occupied slots per expert (round 2), or (K, E)
+    slots added per (choice, expert) (:func:`_dp_offsets`)."""
     T, K = expert_ids.shape
     flat = expert_ids.t().reshape(-1)                  # choice-major (K*T,)
     # (E, K*T) one-hot, counted along its contiguous last dim: the scan
@@ -78,9 +89,37 @@ def _positions_in_expert(expert_ids: torch.Tensor, E: int,
     onehot = flat[None, :] == torch.arange(E, device=flat.device)[:, None]
     pos = torch.cumsum(onehot, dim=1, dtype=torch.int32) - 1
     pos = torch.gather(pos, 0, flat[None, :])[0].long()
-    if base is not None:
+    if base is not None and base.ndim == 2:
+        choice = torch.arange(K, device=flat.device).repeat_interleave(T)
+        pos = pos + base.reshape(-1)[choice * E + flat]
+    elif base is not None:
         pos = pos + base[flat]
     return pos.reshape(K, T).t()                       # (T, K)
+
+
+def _choice_counts(expert_ids: torch.Tensor, E: int) -> torch.Tensor:
+    """(K, E) int32: how many of the pairs of each choice went to each
+    expert."""
+    T, K = expert_ids.shape
+    out = torch.zeros((K, E), dtype=torch.int32, device=expert_ids.device)
+    return out.scatter_add_(1, expert_ids.t().long(), torch.ones(
+        (K, T), dtype=torch.int32, device=expert_ids.device))
+
+
+def _dp_offsets(counts: torch.Tensor, dp):
+    """The whole data-parallel batch's view of this rank's (K, E) pair
+    ``counts`` (:func:`_choice_counts`): one all-gather over ``dp``'s
+    ranks.  Rank ``r`` holds rows ``[r·T, (r+1)·T)`` of the batch, so a
+    pair (choice ``k``, expert ``e``) of it sits, choice-major over the
+    whole batch, after every rank's pairs of earlier choices and the
+    pairs of choice ``k`` on ranks before ``r``.  Returns ``(offset,
+    total)``: the (K, E) slots to add to this rank's choice-major
+    positions, and the whole batch's (K, E) counts."""
+    every = dp.all_gather(counts[None])                # (D, K, E)
+    total = every.sum(0)
+    before = torch.cumsum(total, 0) - total + every[:dp.rank].sum(0) \
+        - (torch.cumsum(counts, 0) - counts)
+    return before, total
 
 
 def _expert_load(expert_ids: torch.Tensor, mask: torch.Tensor, E: int):
@@ -89,7 +128,8 @@ def _expert_load(expert_ids: torch.Tensor, mask: torch.Tensor, E: int):
 
 
 def dlbc_reroute(ids, gates, probs, pos1, keep1, load, provider,
-                 n_groups: int, expert_open, group_of=None):
+                 n_groups: int, expert_open, group_of=None, dp=None,
+                 with_counts: bool = False):
     """The DLBC round-2 re-route (a "group" is an expert here).
 
     Overflow (token, choice) pairs re-route once to the token's best
@@ -98,25 +138,35 @@ def dlbc_reroute(ids, gates, probs, pos1, keep1, load, provider,
     admitted per group, and are re-admitted against the same provider.
     Returns ``(ids_f, group_f, pos_f, keep, gates_f, overflow)`` —
     rerouted pairs weighted by the probability of the expert that serves
-    them."""
+    them.  ``dp`` (a data-axis ``Collectives`` of size > 1): ``load`` and
+    ``expert_open`` are the whole batch's, and the overflow pairs take
+    their positions among every data rank's (one all-gather of their
+    ``(K, n_groups + 1)`` counts).  ``with_counts`` appends those counts
+    (the whole batch's), the last group being the pairs not re-routed."""
     group_of = group_of or (lambda i: i)
     overflow = ~keep1                                  # (T, K)
     avail = probs * expert_open[None, :].to(probs.dtype)
     alt_ids = torch.argmax(avail, dim=-1)              # first maximum
     ids2 = torch.where(overflow, alt_ids[:, None], ids)
     group2 = group_of(ids2)
-    pos2 = _positions_in_expert(
-        torch.where(overflow, group2, n_groups),       # only overflow counts
-        n_groups + 1,
-        base=torch.cat([load, torch.zeros((1,), dtype=load.dtype,
-                                          device=load.device)]))
+    grouped = torch.where(overflow, group2, n_groups)  # only overflow counts
+    base = torch.cat([load, torch.zeros((1,), dtype=load.dtype,
+                                        device=load.device)])
+    counts = None
+    if dp is not None or with_counts:
+        counts = _choice_counts(grouped, n_groups + 1)
+    if dp is not None:
+        offset, counts = _dp_offsets(counts, dp)
+        base = base[None, :] + offset
+    pos2 = _positions_in_expert(grouped, n_groups + 1, base=base)
     ids_f = torch.where(overflow, ids2, ids)
     group_f = torch.where(overflow, group2, group_of(ids))
     pos_f = torch.where(overflow, pos2, pos1)
     keep = provider.admit_mask(pos_f)
     alt_gate = torch.gather(probs, -1, ids_f).to(gates.dtype)
     gates_f = torch.where(overflow, alt_gate, gates)
-    return ids_f, group_f, pos_f, keep, gates_f, overflow
+    out = (ids_f, group_f, pos_f, keep, gates_f, overflow)
+    return out + (counts,) if with_counts else out
 
 
 def route(x: torch.Tensor, router_w: torch.Tensor, top_k: int):
@@ -135,7 +185,7 @@ def route(x: torch.Tensor, router_w: torch.Tensor, top_k: int):
 
 def moe_apply(p: dict, cfg, x: torch.Tensor,
               return_stats: bool = False, use_kernel: bool = True, tp=None,
-              ep=None, sp: bool = False):
+              ep=None, sp: bool = False, dp=None):
     """x: (B, S, d) or (T, d).  Dispatch per ``cfg.moe_dispatch``; the
     SwiGLU expert FFN runs the grouped-matmul kernel unless
     ``use_kernel=False`` (the reference's einsum path).  With ``tp`` (a
@@ -155,7 +205,17 @@ def moe_apply(p: dict, cfg, x: torch.Tensor,
     the EP round compute alike on every model rank, so they read ``x``
     with only this rank's block of its gradient passed back
     (``keep_block_grad``); the experts' partial products are
-    reduce-scattered, the round's whole result sliced."""
+    reduce-scattered, the round's whole result sliced.
+
+    ``dp`` (a data-axis ``Collectives``; the EP round ignores it): ``x``
+    is data rank ``r``'s rows ``[r·T, (r+1)·T)`` of a batch of ``D·T``
+    tokens, which the reference routes as one array.  Where ``D > 1``
+    capacity is sized over ``D·T`` tokens and every pair takes its
+    position among the whole batch's (choice-major, then rank by rank),
+    from the ``(K, E)`` pair counts of every rank, all-gathered once per
+    round: one all-gather for ``lc``, two for ``dlbc`` (its round-1 load
+    and residual come from the first).  ``return_stats`` then reports the
+    whole batch's drops."""
     orig_shape = x.shape
     # routing and the EP round compute alike on every model rank
     xr = enter_tp(x, tp, split=False, gathered=sp).reshape(-1, x.shape[-1])
@@ -181,7 +241,10 @@ def moe_apply(p: dict, cfg, x: torch.Tensor,
             ep_stats["padded_tokens"] = pad
             return y, ep_stats
         return y
-    C = capacity(T, E, K, cfg.moe_capacity_factor)
+    if dp is not None and dp.size == 1:
+        dp = None
+    D = dp.size if dp is not None else 1
+    C = capacity(D * T, E, K, cfg.moe_capacity_factor)
     cap = ExpertCapacityProvider(E, C)
     gates, ids, probs = route(xr, p["router"], K)
     rounds = 1
@@ -195,24 +258,39 @@ def moe_apply(p: dict, cfg, x: torch.Tensor,
             enter_tp(x, tp, gathered=sp), copy_to_tp(gates_, tp), ids_, pos_,
             keep_, E, C, p, cfg.act, use_kernel=use_kernel, experts=experts)
 
+    base = total = None
+    if dp is not None:
+        base, total = _dp_offsets(_choice_counts(ids, E), dp)
+    pos1 = _positions_in_expert(ids, E, base=base)
+    keep1 = cap.admit_mask(pos1)
     if cfg.moe_dispatch == "lc":
-        pos = _positions_in_expert(ids, E)
-        keep = cap.admit_mask(pos)
-        y = run(gates, ids, pos, keep)
+        keep = keep1
+        y = run(gates, ids, pos1, keep1)
     else:
-        pos1 = _positions_in_expert(ids, E)
-        keep1 = cap.admit_mask(pos1)
         rounds = 2
-        load = _expert_load(ids, keep1, E)          # (E,) used slots
+        if total is None:
+            load = _expert_load(ids, keep1, E)      # (E,) used slots
+        else:
+            load = torch.clamp(total.sum(0), max=C)
         resid = cap.residual(load)                  # idle capacity
-        ids_final, _, pos_final, keep, gates_final, _ = dlbc_reroute(
-            ids, gates, probs, pos1, keep1, load, cap, E,
-            expert_open=resid > 0)
+        out = dlbc_reroute(ids, gates, probs, pos1, keep1, load, cap, E,
+                           expert_open=resid > 0, dp=dp,
+                           with_counts=return_stats and dp is not None)
+        ids_final, _, pos_final, keep, gates_final, _ = out[:6]
         y = run(gates_final, ids_final, pos_final, keep)
     y = leave_tp(y.reshape(orig_shape), tp, sp=sp)
     if return_stats:
-        return y, {"dropped_frac": torch.sum(~keep) / (T * K),
-                   "spawns": torch.sum(keep),
+        if dp is None:
+            dropped = torch.sum(~keep)
+        else:
+            # the whole batch's: past C in each expert after round 1,
+            # less what round 2 admitted of the re-routed pairs
+            dropped = torch.clamp(total.sum(0) - C, min=0).sum()
+            if rounds == 2:
+                dropped = dropped - torch.minimum(out[6].sum(0)[:E],
+                                                  resid).sum()
+        return y, {"dropped_frac": dropped / (D * T * K),
+                   "spawns": D * T * K - dropped,
                    "joins": 1, "rounds": rounds,
                    "total_slots": cap.total()}
     return y

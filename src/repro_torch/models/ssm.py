@@ -37,7 +37,20 @@ from torch.utils.checkpoint import checkpoint
 
 from ..distributed.comm import copy_to_tp, enter_tp, leave_tp, reduce_from_tp
 from ..kernels.ssm_scan.ops import ssm_scan_op
-from .layers import _norm_init, dense_apply, dense_init
+from .layers import _MetaGenerator, _norm_init, dense_apply, dense_init
+
+
+def ssm_shapes(cfg, dtype) -> dict:
+    return ssm_init(_MetaGenerator(), cfg, dtype)
+
+
+def ssm_cache_shapes(cfg, B: int, dtype) -> dict:
+    """A mamba layer's decode state as meta tensors: ``conv`` (B, cw-1, Di)
+    in ``dtype``, ``h`` (B, Di, N) fp32."""
+    di, n, cw = cfg.d_inner, cfg.ssm_state, cfg.conv_width
+    return {"conv": torch.empty((B, cw - 1, di), dtype=dtype, device="meta"),
+            "h": torch.empty((B, di, n), dtype=torch.float32,
+                             device="meta")}
 
 
 def ssm_init(gen: torch.Generator, cfg, dtype) -> dict:

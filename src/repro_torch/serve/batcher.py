@@ -96,7 +96,10 @@ admissions, prefill chunks and virtual-time costs — and launches on its
 ``n_slots / D`` rows with its compute shards (tensor-parallel serving in
 :mod:`repro_torch.models.model`); the next tokens are reduced over the
 model ranks' vocab shards (``MDL.vocab_argmax``) and all-gathered over
-the data ranks, so every rank's scheduler sees every slot.  On the
+the data ranks, so every rank's scheduler sees every slot; the MoE layers
+size capacity and slot positions over every data rank's slots, as the
+reference's jitted prefill and decode see them (``dp``: one or two
+all-gathers per MoE layer and launch).  On the
 reference's ``(expert S, data D, model m)`` layout the expert ranks of
 one data rank launch on the same rows, each with its expert rank's
 ``E/S`` experts × ``d_ff/m`` (its caches whole over the expert axis),
@@ -364,7 +367,7 @@ class ContinuousBatcher:
         rows = {k: self._on_device(v[self._rows]) for k, v in batch.items()}
         with mesh_context(self.mesh):
             return step(self.params, self.cfg, self.cache, rows, tp=self.tp,
-                        ep=self.ep)
+                        ep=self.ep, dp=self.dp)
 
     def _next_tokens(self, logits: torch.Tensor) -> np.ndarray:
         """Every slot's next token: the argmax over the REAL vocab (the

@@ -27,7 +27,12 @@ batch sharding):
                    compressed to bf16.
 
 Every reduction is a mean over the data ranks (a sum, then a division),
-over the group of the fsdp axes only.  The ``afe`` policies all-reduce
+over the group of the fsdp axes only.  The same group is the MoE layers'
+``dp`` (``models.moe.moe_apply``): each forward of a MoE layer, and each
+``remat`` recompute of one, all-gathers the ranks' pair counts once
+(``lc``) or twice (``dlbc``), so that capacity and slot positions are the
+whole microbatch's, as in the reference; these count in
+``metrics["collectives"]`` too.  The ``afe`` policies all-reduce
 the gradient norm's per-leaf sums before clipping, so the non-finite
 guard agrees on every rank.  Each call counts its collectives by kind
 (:class:`~repro_torch.distributed.comm.Collectives`, the counterpart of
@@ -91,7 +96,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
-import torch.distributed as dist
 
 from ..configs.base import ModelConfig, ShapeConfig
 from ..distributed.comm import (
@@ -364,8 +368,8 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
     if mesh is not None:
         group = mesh_group(mesh, fsdp_axes(mesh))
         if dp_shard:
-            layout = fsdp_layout(shapes, cfg, dist.get_rank(group),
-                                 dist.get_world_size(group))
+            c = Collectives(group)
+            layout = fsdp_layout(shapes, cfg, c.rank, c.size)
     dims = tree_leaves(layout.dims) if layout is not None else None
 
     # --- scheduling (repro_torch.sched), as in the reference: capacity =
@@ -423,7 +427,8 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
         acc, loss_sum = None, 0.0
         for i in range(M):
             mb = {k: v[i * b + lo:i * b + hi] for k, v in batch.items()}
-            loss = MDL.loss_fn(vparams, cfg, mb, tp=tpc, ep=epc, **fwd_kw)
+            loss = MDL.loss_fn(vparams, cfg, mb, tp=tpc, ep=epc, dp=comm,
+                               **fwd_kw)
             g = torch.autograd.grad(loss, views)
             loss_sum = loss_sum + loss.detach()
             del loss
@@ -583,8 +588,11 @@ def build_prefill_step(cfg: ModelConfig, scfg: StepConfig):
                   remat=scfg.remat)
 
     @torch.no_grad()
-    def prefill(params, batch):
-        logits = MDL.forward(params, cfg, batch, last_only=True, **fwd_kw)
+    def prefill(params, batch, dp=None):
+        """``dp``: the data-axis ``Collectives`` when ``batch`` is this
+        rank's rows (``MDL.forward``)."""
+        logits = MDL.forward(params, cfg, batch, last_only=True, dp=dp,
+                             **fwd_kw)
         return logits[:, -1]  # next-token logits
 
     return prefill
@@ -592,7 +600,7 @@ def build_prefill_step(cfg: ModelConfig, scfg: StepConfig):
 
 def build_decode_step(cfg: ModelConfig):
     @torch.no_grad()
-    def serve_step(params, cache, batch):
-        return MDL.decode_step(params, cfg, cache, batch)
+    def serve_step(params, cache, batch, dp=None):
+        return MDL.decode_step(params, cfg, cache, batch, dp=dp)
 
     return serve_step

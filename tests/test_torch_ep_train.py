@@ -341,8 +341,18 @@ SCRIPT = textwrap.dedent("""
         from repro_torch.launch.mesh import make_test_mesh
 
         mesh = make_test_mesh(data=2, model=1, expert=2, device_type="cpu")
-        return {"steps": {pol: policy_steps(pol, src, mesh)
-                          for pol in WIDE}}
+        out = {"steps": {pol: policy_steps(pol, src, mesh)
+                         for pol in WIDE}}
+        # the round under pressure on this data rank's half of the tokens
+        from repro_torch.distributed.comm import Collectives
+        cfg, p, x, r = moe_case(True)
+        d = dist.get_rank(mesh.get_group("data"))
+        n = x.shape[0] // 2
+        out["data_round"] = round_grads(
+            cfg, p, x[d * n:(d + 1) * n], r[d * n:(d + 1) * n],
+            Collectives(mesh.get_group("expert")))
+        out["data_rank"] = d
+        return out
 
 
     def worker(fn, rank, world, store, tmp, src, q):
@@ -480,6 +490,27 @@ SCRIPT = textwrap.dedent("""
                     "collectives": [x["collectives"] for x in ranks],
                     "ep_collectives": [x["ep_collectives"] for x in ranks]}
         result["steps"] = steps
+        # (expert 2, data 2) under pressure: each data rank's round
+        # against the two-shard oracle over that rank's rows, and the
+        # ranks' rows together against the oracle over the whole matrix
+        # (the reference's layout: its shard_map hands each expert shard
+        # T/S rows of the global batch)
+        cfg, p, x, r = moe_case(True)
+        n = x.shape[0] // 2
+        y = [None, None]
+        per_rank = 0.0
+        for k in range(4):
+            d = four[k]["data_rank"]
+            want, _ = shard_oracle(cfg, p, x[d * n:(d + 1) * n],
+                                   r[d * n:(d + 1) * n])
+            got = np.asarray(four[k]["data_round"]["y"])
+            per_rank = max(per_rank, diff(got, want.numpy()))
+            y[d] = got
+        whole, _ = shard_oracle(cfg, p, x, r)
+        result["data_round"] = {
+            "per_rank_err": per_rank,
+            "whole_err": diff(np.concatenate(y), whole.numpy()),
+            "scale": float(whole.abs().max())}
         from repro_torch.ckpt.checkpoint import CheckpointManager
         from repro_torch.tree import tree_leaves
         _, back = CheckpointManager(os.path.join(tmp, "ckpt_ep")).restore(
@@ -615,6 +646,22 @@ def test_round_grads_match_single_host(ep_results):
     assert r["y_err"] <= 2e-5 and r["x_grad_ranks_agree"]
     assert r["grad_err"] <= 2e-5, r["grad_err"]
     assert r["stats"] == {}
+
+
+def test_data2_round_under_pressure_takes_the_data_ranks_rows(ep_results):
+    """At ``(expert 2, data 2)`` under pressure (a hot router, capacity
+    factor 1) each data rank's EP round equals the two-shard oracle over
+    that rank's rows within 1e-6: lanes, lane capacity and expert capacity
+    over its ``T/D`` tokens.  The reference's ``shard_map`` hands each
+    expert shard ``T/S`` rows of the whole batch instead (it cannot run
+    here, ROADMAP Queue 3 B; the oracle over the whole token matrix stands
+    for it), and under pressure that drops other pairs: ROADMAP fault N,
+    which the gathered pair counts of fault M's repair cannot mend, since
+    the lanes themselves differ.  When the round takes the whole batch's
+    rows the second check becomes equality."""
+    r = ep_results["data_round"]
+    assert r["per_rank_err"] <= 1e-6, r
+    assert r["whole_err"] > 1e-3 * r["scale"], r
 
 
 def test_round_grads_match_reference(ep_results, reference):

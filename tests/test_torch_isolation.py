@@ -10,7 +10,11 @@ fallback.
   ``ExpertCapacityProvider.residual/overflow``.
 * Entry points called without ``device=`` ask for the card and raise
   where there is none; kernel wrappers given CPU tensors run their plain
-  version and do not count a launch.
+  version and do not count a launch.  The one entry point whose device is
+  not the card is the dry run (``repro_torch.launch.dryrun.main``): it
+  traces on the meta device and leaves CUDA uninitialised; its modules
+  (``launch/dryrun.py``, ``roofline/``) import neither JAX nor the
+  reference, like every other.
 """
 
 import ast
@@ -147,3 +151,32 @@ def test_ssm_scan_wrapper_runs_plain_on_cpu_and_refuses_mixed_devices():
     assert SS.launches == n0
     with pytest.raises(ValueError, match="CUDA"):
         SS.ssm_scan(dA, dBx, C, torch.zeros(1, 8, 4, device="meta"))
+
+
+@pytest.mark.parametrize("rel", ["src/repro_torch/launch/dryrun.py",
+                                 "src/repro_torch/roofline/__init__.py",
+                                 "src/repro_torch/roofline/analysis.py",
+                                 "src/repro_torch/roofline/op_counter.py",
+                                 "src/repro_torch/roofline/reanalyze.py",
+                                 "src/repro_torch/roofline/sink.py"])
+def test_dry_run_modules_import_no_jax_and_no_reference(rel):
+    assert rel in FILES
+    test_module_imports_no_jax_and_no_reference(rel)
+
+
+def test_dry_run_is_the_one_entry_point_on_meta(tmp_path):
+    """``launch.dryrun.main`` runs without a card and without asking for
+    one: it traces on the meta device, writes its record and leaves CUDA
+    uninitialised.  ``resolve_device`` takes ``"meta"`` only when asked
+    for: ``None`` still means the card."""
+    from repro_torch.device import resolve_device
+    from repro_torch.launch import dryrun
+
+    assert dryrun.main(["--arch", "hymba-1.5b", "--shape", "decode_32k",
+                        "--out", str(tmp_path)]) == 0
+    assert len(list(tmp_path.glob("*.json"))) == 1
+    assert not torch.cuda.is_initialized()
+    assert resolve_device("meta").type == "meta"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            resolve_device(None)

@@ -197,3 +197,67 @@ def test_expert_parallel_without_expert_axis_is_single_host():
     want = TMOE.moe_apply(p, dataclasses.replace(tcfg, expert_parallel=False),
                           x)
     assert torch.equal(TMOE.moe_apply(p, tcfg, x), want)
+
+
+class _ThreadDP:
+    """A data axis of ``size`` ranks in one process, one thread per rank
+    (a stand-in for ``distributed.comm.Collectives``): ``all_gather``
+    meets every rank's tensor at a barrier and counts its calls."""
+
+    def __init__(self, rank, size, shared, barrier):
+        self.rank, self.size = rank, size
+        self.shared, self.barrier = shared, barrier
+        self.counts = {"all_gather": 0}
+
+    def all_gather(self, t):
+        self.shared[self.rank] = t
+        self.barrier.wait()
+        out = torch.cat([self.shared[r] for r in range(self.size)])
+        self.barrier.wait()
+        self.counts["all_gather"] += 1
+        return out
+
+
+@pytest.mark.parametrize("cf", [1.25, 0.25])
+@pytest.mark.parametrize("dispatch", ["lc", "dlbc"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_moe_data_parallel_matches_whole_batch(arch, dispatch, cf):
+    """Fault M: 2 data ranks, each with its half of a skewed batch whose
+    experts overflow, give the reference's result on the whole batch
+    (within 1e-4) and its drop and spawn counts exactly, from one
+    all-gather of pair counts (``lc``) or two (``dlbc``); the whole
+    batch's rows cut per rank, as the train step cuts them."""
+    import threading
+
+    jc, tc = _cfgs(arch, moe_dispatch=dispatch, moe_capacity_factor=cf)
+    jp, tp = _params(jc)
+    x = _skewed_tokens(jc.d_model)
+    want, jst = JMOE.moe_apply(jp, jc, jnp.asarray(x), return_stats=True)
+    # round 1 overflows (dlbc at 1.25 re-admits every pair in round 2)
+    _, lst = JMOE.moe_apply(jp, dataclasses.replace(jc, moe_dispatch="lc"),
+                            jnp.asarray(x), return_stats=True)
+    assert float(lst["dropped_frac"]) > 0
+    D, n = 2, x.shape[0] // 2
+    shared, barrier, got = {}, threading.Barrier(D, timeout=60), {}
+
+    def rank(r):
+        dp = _ThreadDP(r, D, shared, barrier)
+        y, st = TMOE.moe_apply(tp, tc, torch.tensor(x[r * n:(r + 1) * n]),
+                               return_stats=True, use_kernel=False, dp=dp)
+        got[r] = (y, st, dp.counts["all_gather"])
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(D)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads) and len(got) == D
+    y = torch.cat([got[r][0] for r in range(D)])
+    np.testing.assert_allclose(y.numpy(), np.asarray(want), atol=1e-4)
+    for r in range(D):
+        _, st, gathers = got[r]
+        assert gathers == (1 if dispatch == "lc" else 2)
+        assert int(st["spawns"]) == int(jst["spawns"])
+        assert float(st["dropped_frac"]) == pytest.approx(
+            float(jst["dropped_frac"]), abs=1e-7)
+        assert st["total_slots"] == jst["total_slots"]

@@ -13,12 +13,15 @@ fails it.  While it runs, this process computes the oracles.
   phi3 dense, granite moe, falcon-mamba ssm, hymba hybrid, whisper
   encdec, llama-vision vlm) from the reference's init, optimizer state
   and batch: 2 steps (phi3 under each sync policy, the others under
-  ``afe``; granite at capacity factor E / top_k, since the port sizes
-  expert capacity per data rank and the reference over the whole batch,
-  ROADMAP fault M) whose gradient norms and whole params are the
-  reference's single-device jitted steps' within 2e-5; every layer's
-  input on a rank is ``(B/D, S/m, d)`` (whisper's encoder ``(B/D,
-  enc_seq/m, d)``); phi3's collectives exact per axis.
+  ``afe``; granite at capacity factor E / top_k and, since fault M's
+  repair, at its own factor 1.25 and at 0.25, with ``dlbc`` and ``lc``
+  dispatch: capacity and slot positions over the whole microbatch)
+  whose gradient norms and whole params are the reference's
+  single-device jitted steps' within 2e-5; every layer's input on a rank
+  is ``(B/D, S/m, d)`` (whisper's encoder ``(B/D, enc_seq/m, d)``);
+  phi3's collectives exact per axis, granite's data-axis all-gathers
+  exactly one (``lc``) or two (``dlbc``) per MoE layer and forward,
+  ``remat``'s recompute included.
 * **(data 1, model 2), 2 ranks** — phi3's policies and granite at its
   own capacity factor against the reference likewise; the family cases
   of ``tests/test_torch_tp.py``, one under capacity pressure and one ragged-S case (S 7, which falls
@@ -31,7 +34,8 @@ fails it.  While it runs, this process computes the oracles.
 * **(pod 2, data 2, model 2), 8 ranks** (fault K: two wide data axes that
   do not span the world) — phi3's four policies' 2 steps against the
   reference at 2e-5 with exact counts per axis, each rank's data group
-  the one ``axis_groups`` gives; granite's closed batch through the
+  the one ``axis_groups`` gives; granite's four fault M cases likewise;
+  granite's closed batch through the
   ``ContinuousBatcher``: every request finished, tokens those of one
   process, collectives exact.
 """
@@ -77,23 +81,34 @@ POLICIES = ("unopt", "lc", "afe", "afe_bucket")
 SEQ, BATCH, MICRO, N_BUCKETS = 8, 8, 2, 4
 #: the runs stepped against the reference: (arch, config fields replaced).
 #: Every family on (data 2, model 2); granite there at capacity factor E /
-#: top_k, since the port's capacity is per data rank (ROADMAP fault M),
-#: and at its own capacity factor on (data 1, model 2)
+#: top_k and (fault M: capacity and positions over the whole microbatch)
+#: at its own factor 1.25 and at 0.25, dispatched ``dlbc`` and ``lc``
 FAMILIES = {"dense": ("phi3-mini-3.8b", {}),
             "moe": ("granite-moe-1b-a400m", {}),
             "moe_ample": ("granite-moe-1b-a400m",
                           {"moe_capacity_factor": 2.0}),
+            "moe_lc": ("granite-moe-1b-a400m", {"moe_dispatch": "lc"}),
+            "moe_tight": ("granite-moe-1b-a400m",
+                          {"moe_capacity_factor": 0.25}),
+            "moe_tight_lc": ("granite-moe-1b-a400m",
+                             {"moe_capacity_factor": 0.25,
+                              "moe_dispatch": "lc"}),
             "ssm": ("falcon-mamba-7b", {}),
             "hybrid": ("hymba-1.5b", {}),
             "encdec": ("whisper-medium", {}),
             "vlm": ("llama-3.2-vision-90b", {})}
+#: granite's fault M cases, run on (data 2, model 2) and (pod 2, data 2,
+#: model 2)
+FAULT_M = ("moe", "moe_lc", "moe_tight", "moe_tight_lc")
 #: the runs of each world: (family, policy)
 RUNS = {4: [("dense", p) for p in ("unopt", "lc", "afe", "afe_bucket")]
         + [(f, "afe") for f in ("moe_ample", "ssm", "hybrid", "encdec",
-                                "vlm")],
+                                "vlm")]
+        + [(f, "afe") for f in FAULT_M],
         2: [("dense", p) for p in ("unopt", "lc", "afe", "afe_bucket")]
         + [("moe", "afe")],
-        8: [("dense", p) for p in ("unopt", "lc", "afe", "afe_bucket")]}
+        8: [("dense", p) for p in ("unopt", "lc", "afe", "afe_bucket")]
+        + [(f, "afe") for f in FAULT_M]}
 #: the 2-rank gradient cases: (arch, config fields replaced, S)
 CASES = {
     "dense": ("phi3-mini-3.8b", {}, SEQ),
@@ -601,12 +616,12 @@ def test_residual_stream_is_sequence_sharded(sp, fam):
                 [tuple(s) for s in shapes]
 
 
-def _data_collectives(policy, mesh, rows):
+def _data_collectives(policy, mesh, rows, fam="dense"):
     """The data axes' collectives per step over one model rank's local
-    phi3 tree, as ``tests/test_torch_distributed.py`` derives them: the
-    FSDP layout over ``rows`` data ranks, the bucket plan over the local
-    leaves."""
-    cfg = _cfg(*FAMILIES["dense"])
+    tree of ``fam`` (phi3 by default), as
+    ``tests/test_torch_distributed.py`` derives them: the FSDP layout over
+    ``rows`` data ranks, the bucket plan over the local leaves."""
+    cfg = _cfg(*FAMILIES[fam])
     shapes = tp_local_params(TM.param_shapes(cfg), cfg, 0, 2)
     leaves = tree_leaves(shapes)
     with mesh_context(mesh):
@@ -656,6 +671,30 @@ def test_dense_collectives_exact_per_axis(sp, world, policy):
     for r in sp["ranks"][world]:
         for d, m, e in r["steps"][f"dense|{policy}"]["collectives"]:
             assert d == data
+            assert m == model
+            assert e == {}
+
+
+@pytest.mark.parametrize("world", [4, 8])
+@pytest.mark.parametrize("fam", FAULT_M)
+def test_moe_data_axis_all_gathers_exact(sp, world, fam):
+    """granite's fault M runs, per step: the data axes' collectives of
+    ``afe`` over the local tree plus, per MoE layer and forward (each
+    microbatch's and its ``remat`` recompute), one all-gather of the
+    ranks' pair counts under ``lc`` and two under ``dlbc``; the model
+    axis's the sequence-parallel ones and, per MoE layer and microbatch,
+    the all-reduce of the gates' gradient (``copy_to_tp``); no expert
+    axis."""
+    mesh, rows = MESHES[world]
+    cfg = _cfg(*FAMILIES[fam])
+    rounds = 1 if cfg.moe_dispatch == "lc" else 2
+    data = _data_collectives("afe", mesh, rows, fam)
+    data["all_gather"] += MICRO * 2 * cfg.n_layers * rounds
+    for r in sp["ranks"][world]:
+        for d, m, e in r["steps"][f"{fam}|afe"]["collectives"]:
+            assert d == data
+            model = _tp_collectives(cfg.n_layers)
+            model["all_reduce"] += MICRO * cfg.n_layers
             assert m == model
             assert e == {}
 
@@ -794,7 +833,8 @@ def test_multi_pod_batcher_finishes_like_one_process(sp):
     tokens those of one process; per prefill round (chunk 4,
     sequence-parallel) the model axis's all-gathers and reduce-scatters,
     per decode step its all-reduces and the argmax's all-gather, and the
-    tokens' all-gather over the data group."""
+    tokens' all-gather over the data group, with per MoE layer and launch
+    the two all-gathers of ``dlbc``'s pair counts (fault M)."""
     L = _cfg("granite-moe-1b-a400m").n_layers
     for r in sp["ranks"][8]:
         got = r["serve"]
@@ -806,4 +846,5 @@ def test_multi_pod_batcher_finishes_like_one_process(sp):
             all_reduce=(1 + 2 * L) * n_dec,
             reduce_scatter=(1 + 2 * L) * n_pre,
             all_gather=n_dec + (1 + 2 * L) * n_pre)
-        assert got["dp"] == _counts(all_gather=n_dec)
+        assert got["dp"] == _counts(
+            all_gather=n_dec + 2 * L * (n_pre + n_dec))

@@ -20,8 +20,10 @@ does); any rank's traceback fails it.
   the shard boundary.
 * **(data 2, model 2), 4 ranks** — granite-moe SMOKE (fp32) through the
   ``ContinuousBatcher``: its tokens, admission trace, decode costs and
-  stats equal the one-process batcher's exactly, on every rank; each
-  axis's collectives are exact per prefill round and decode step.
+  stats equal the one-process batcher's exactly, on every rank, at its
+  own capacity factor and at 0.25, where capacity binds (fault M: the
+  MoE layers size it over every data rank's slots); each axis's
+  collectives are exact per prefill round and decode step.
 * **In process** — cache cuts put back together bit for bit, and
   ``init_cache`` on a mesh has the cut layout's shapes.
 """
@@ -85,6 +87,12 @@ CHUNKINGS = ([11], [1] * 11, [8, 3])
 SERVE_SPEC = [(0, 0, 2, 5), (1, 0, 9, 4), (2, 0, 5, 6), (3, 1, 13, 3),
               (4, 2, 3, 5), (5, 4, 7, 2), (6, 5, 1, 4), (7, 7, 11, 3)]
 SERVE = dict(n_slots=4, cache_len=32, policy="dlbc", prefill_chunk=4)
+#: the batcher runs: (config fields, batcher arguments) — granite's own
+#: capacity factor, and 0.25 with 8-token chunks, where a prefill round
+#: routes 64 pairs into 4 experts of 8 slots (per data rank alone, 32)
+SERVE_CFG = {"own": ({}, SERVE),
+             "tight": ({"moe_capacity_factor": 0.25},
+                       dict(SERVE, prefill_chunk=8))}
 
 
 def _cfg(arch, rep, ref=False):
@@ -203,16 +211,22 @@ SCRIPT = textwrap.dedent("""
 
 
     def world4(rank, tmp):
-        from repro_torch.distributed.sharding import tp_local_params
         from repro_torch.launch.mesh import make_test_mesh
-        from repro_torch.models import model as TM
-        from repro_torch.serve import batcher as TB
 
         with open(os.path.join(tmp, "setup.pkl"), "rb") as f:
             setup = pickle.load(f)
-        srv = setup["serve"]
-        cfg = cfg_of(*srv["cfg"])
         mesh = make_test_mesh(data=2, model=2, device_type="cpu")
+        out = serve(setup["serve"], mesh)
+        out["tight"] = serve(setup["serve_tight"], mesh)
+        return out
+
+
+    def serve(srv, mesh):
+        from repro_torch.distributed.sharding import tp_local_params
+        from repro_torch.models import model as TM
+        from repro_torch.serve import batcher as TB
+
+        cfg = cfg_of(*srv["cfg"])
         m_rank = dist.get_rank(mesh.get_group("model"))
         params = tp_local_params(srv["params"], cfg, m_rank, 2)
         b = TB.ContinuousBatcher(cfg, params, device="cpu", mesh=mesh,
@@ -394,22 +408,24 @@ def serve_results(tmp_path_factory):
                                      device=CPU),
             "prompt": np.random.default_rng(7).integers(
                 0, cfg.vocab, size=12).tolist()}
-    cfg = _cfg("granite-moe-1b-a400m", {})
-    rng = np.random.default_rng(1)
-    trace = [(r, t, rng.integers(0, cfg.vocab, size=n).tolist(), m)
-             for r, t, n, m in SERVE_SPEC]
-    params = TM.init_params(cfg, torch.Generator().manual_seed(0),
-                            device=CPU)
-    setup["serve"] = {"cfg": ("granite-moe-1b-a400m", {}), "params": params,
-                      "trace": trace, "kw": SERVE}
-    one = TB.ContinuousBatcher(cfg, params, device="cpu", **SERVE)
-    reqs = [TB.Request(rid=r, prompt=list(p), max_new=n, arrive_step=t)
-            for r, t, p, n in trace]
-    one.run(reqs)
-    want["serve"] = {"tokens": [r.tokens for r in reqs],
-                     "admissions": one.admissions,
-                     "costs": one.stats.decode_step_costs,
-                     "summary": one.stats.summary()}
+    for key, (rep, kw) in SERVE_CFG.items():
+        cfg = _cfg("granite-moe-1b-a400m", rep)
+        rng = np.random.default_rng(1)
+        trace = [(r, t, rng.integers(0, cfg.vocab, size=n).tolist(), m)
+                 for r, t, n, m in SERVE_SPEC]
+        params = TM.init_params(cfg, torch.Generator().manual_seed(0),
+                                device=CPU)
+        name = "serve" if key == "own" else f"serve_{key}"
+        setup[name] = {"cfg": ("granite-moe-1b-a400m", rep),
+                       "params": params, "trace": trace, "kw": kw}
+        one = TB.ContinuousBatcher(cfg, params, device="cpu", **kw)
+        reqs = [TB.Request(rid=r, prompt=list(p), max_new=n, arrive_step=t)
+                for r, t, p, n in trace]
+        one.run(reqs)
+        want[name] = {"tokens": [r.tokens for r in reqs],
+                      "admissions": one.admissions,
+                      "costs": one.stats.decode_step_costs,
+                      "summary": one.stats.summary()}
     with open(tmp / "setup.pkl", "wb") as f:
         pickle.dump(setup, f)
     script = tmp / "tp_serve_ranks.py"
@@ -605,7 +621,8 @@ def test_data2_model2_batcher_collectives_exact(serve_results):
     """Per prefill round (chunk 4, sequence-parallel) the model axis's
     all-gathers and reduce-scatters; per decode step its all-reduces, the
     argmax's all-gather over the model ranks and the tokens' all-gather
-    over the data ranks."""
+    over the data ranks, and per MoE layer and launch the two all-gathers
+    of ``dlbc``'s pair counts over the data ranks (fault M)."""
     cfg = _cfg("granite-moe-1b-a400m", {})
     per = _expected_serve_all_reduces(cfg)
     pre = _expected_prefill_collectives(cfg)
@@ -617,7 +634,24 @@ def test_data2_model2_batcher_collectives_exact(serve_results):
             zero, all_reduce=per * n_dec,
             reduce_scatter=pre["reduce_scatter"] * n_pre,
             all_gather=n_dec + pre["all_gather"] * n_pre)
-        assert got["dp"] == dict(zero, all_gather=n_dec)
+        assert got["dp"] == dict(
+            zero, all_gather=n_dec + 2 * cfg.n_layers * (n_pre + n_dec))
+
+
+def test_data2_model2_batcher_tight_capacity_matches_one_process(
+        serve_results):
+    """At capacity factor 0.25, where the MoE layers drop pairs in every
+    launch, every rank's tokens, admissions, decode costs and stats equal
+    the one-process batcher's: capacity and slot positions are sized
+    over every data rank's slots, as one process sizes them over all of
+    its slots."""
+    want = serve_results["want"]["serve_tight"]
+    for got in (r["tight"] for r in serve_results["ranks"]["four"]):
+        assert got["tokens"] == want["tokens"]
+        assert [tuple(a) for a in got["admissions"]] == \
+            [tuple(a) for a in want["admissions"]]
+        assert got["costs"] == want["costs"]
+        assert got["summary"] == want["summary"]
 
 
 # ---------------------------------------------------------------------------
