@@ -181,6 +181,10 @@ one cross layer, since its ~180 GB of bf16 weights exceed the card):
     ``lc`` step at capacity factor 4: losses within 2e-2 of the
     one-process steps (and, at ample capacity, gradient norms), launches
     and both axes' collectives exact, per-rank step ms and peak memory.
+    (c) Four such processes on ``(expert 2, data 2, model 1)``, 2 ``lc``
+    steps: the EP round over both data ranks' rows (fault N's repair),
+    the same gates, and on the data axis one all-gather of the token
+    rows per MoE layer and forward beside ``lc``'s all-reduces.
 
 21. ``tp_serve``: tensor-parallel serving.  ``moe_gmm`` at one model
     rank of 2's serving shapes (E 16, C 8 and C 80, bf16) against its
@@ -227,13 +231,30 @@ one cross layer, since its ~180 GB of bf16 weights exceed the card):
     process's: each rank's data group over ``("pod", "data")``, the mean
     loss over the data ranks within 2e-2, launches and each axis's
     collectives exact.
+24. ``cp_decode``: context-parallel decode caches, the reference's
+    layout (the self-attention caches' time axis over the model ranks,
+    or at B 1 over the data and model ranks): gloo processes on the one
+    card, fp32 — granite at full width and 4 of its 24 layers, B 8, a
+    32,768-position cache over ``(data 1, model 2)``; the same at B 1
+    over ``(data 2, model 2)``; hymba-1.5b at full width and 4 of its 32
+    layers, B 8, its 1024-slot ring over ``(data 1, model 2)``.  Each
+    rank fills the whole cache from a seed up to 8 positions before a
+    block boundary (hymba: before the ring wraps), cuts its block and
+    takes 16 decode steps across the boundary; the same process then
+    takes them on the whole cache.  Gates: logits within 2e-5 of max
+    |ref|, tokens equal, each rank's final block bit for bit the whole
+    cache's at every position the steps did not write and within 2e-5
+    of max |ref| at those they did, cache bytes the whole cache's / c,
+    the context and model groups' collectives and ``moe_gmm``'s launches
+    exact.
 
 Each main-path run (each forward of phases 4, 7, 9, 10, 15 and 16; the
 serve CLI and the batcher run of phase 5 for ``moe_gmm``; the four steps
 of phases 13, 14 and 15 for the backward kernels, each EP round, each
 rank's every step in phases 19 and 20, and phase 20's EP round under
 autograd, each batcher run of phase 21, each rank's every step and its
-batcher run in phase 22, each rank's every step in phase 23) zeroes the
+batcher run in phase 22, each rank's every step in phase 23, each
+rank's decode steps in phase 24) zeroes the
 launch counters
 just before it and reads them just after; the ``kernels`` line takes ``moe_gmm``'s
 count from the serve CLI, ``ssm_scan``'s from the fp32 falcon-mamba-7b
@@ -1925,16 +1946,17 @@ def tp_rank_run(torch, rank: int, plan: dict) -> dict:
 
 
 def ep_rank_run(torch, rank: int, plan: dict) -> dict:
-    """One expert rank of :func:`phase_ep_train` (b): for each case
+    """One rank of :func:`phase_ep_train` (b) and (c): for each case
     ``(policy, capacity factor or None for the config's, steps)``,
     full-width bf16 steps of ``plan["layers"]`` layers on an ``(expert 2,
-    data 1, model 1)`` mesh,
+    data plan["data"], model 1)`` mesh,
     with the rank's peak memory; the results in the cases' order."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_test_mesh
 
     dev = plan["dev"]
-    mesh = make_test_mesh(data=1, model=1, expert=2, device_type="cpu")
+    mesh = make_test_mesh(data=plan["data"], model=1, expert=2,
+                          device_type="cpu")
     arch, S, B, mb = plan["bf16"]
     base = dataclasses.replace(get_config(arch, smoke=plan["smoke"]),
                                expert_parallel=True,
@@ -1963,7 +1985,8 @@ def tp_rank(rank: int, store: str, plan: dict, q) -> None:
     (:func:`ep_rank_run` for a plan of kind ``"ep"``,
     :func:`tp_serve_rank_run` for one of kind ``"serve"``,
     :func:`ep_tp_rank_run` for one of kind ``"ep_tp"``,
-    :func:`multi_pod_rank_run` for one of kind ``"multi_pod"``); the
+    :func:`multi_pod_rank_run` for one of kind ``"multi_pod"``,
+    :func:`cp_decode_rank_run` for one of kind ``"cp_decode"``); the
     result or the traceback goes on ``q``."""
     import traceback
 
@@ -1980,7 +2003,8 @@ def tp_rank(rank: int, store: str, plan: dict, q) -> None:
                                 rank=rank, world_size=plan.get("world", 2))
         run = {"ep": ep_rank_run, "serve": tp_serve_rank_run,
                "ep_tp": ep_tp_rank_run,
-               "multi_pod": multi_pod_rank_run}.get(plan.get("kind"),
+               "multi_pod": multi_pod_rank_run,
+               "cp_decode": cp_decode_rank_run}.get(plan.get("kind"),
                                                     tp_rank_run)
         q.put((rank, run(torch, rank, plan)))
     except BaseException:
@@ -2261,7 +2285,17 @@ def phase_ep_train(torch, cfg, card: str, T: int = 4096,
     dispatch per expert over all tokens, with its re-route); per-rank
     launches exactly ``expected_launches`` of the rank-local config (E
     16), the expert and data axes' collectives exactly, no skipped step;
-    per-rank step ms and peak memory."""
+    per-rank step ms and peak memory.
+
+    (c) Four processes at ``(expert 2, data 2, model 1)``, the same
+    layers, batch and seed: 2 ``lc`` steps at the config's capacity.
+    Each data rank's round all-gathers both data ranks' token rows and
+    runs on the whole microbatch (the reference's lanes and capacities),
+    so the gates are (b)'s: the losses' mean over the data ranks within
+    2e-2 of the one-process steps,
+    launches and the expert axis's collectives as on a data axis of 1,
+    the data axis's those of ``lc`` plus one all-gather per MoE layer
+    and forward (``2 · microbatches · layers`` with remat)."""
     import gc
     import shutil
 
@@ -2357,55 +2391,70 @@ def phase_ep_train(torch, cfg, card: str, T: int = 4096,
     plan = {"kind": "ep", "dev": "cuda", "smoke": False,
             "cases": (("lc", None, 2), ("afe", None, 2), ("lc", ample, 1)),
             "bf16": (cfg.name, 1024, 8, 2), "layers": layers}
-    got = tp_spawn(plan)
     local = dataclasses.replace(ep_cfg, n_experts=cfg.n_experts // 2)
     expect = expected_launches(local, 1024, 2)
     ep_expect = ep_expected_collectives(ep_cfg, 2)
     bad = []
-    for i, (policy, cf, steps) in enumerate(plan["cases"]):
-        data_expect = expected_collectives(cfg, policy, 2,
-                                           StepConfig().n_buckets)
-        ref = one[cf]
-        for r in range(2):
-            b = got[r][i]
-            row = {"phase": "ep_train", "check": "bf16", "rank": r,
-                   "card": card, "arch": cfg.name, "layers": layers,
-                   "mesh": "expert 2, data 1, model 1", "backend": "gloo",
-                   "policy": policy, "seq_len": 1024, "global_batch": 8,
-                   "microbatches": 2, "capacity_factor":
-                       cf or cfg.moe_capacity_factor,
-                   "capacity": M.capacity(4096, cfg.n_experts, cfg.top_k,
-                                          cf or cfg.moe_capacity_factor),
-                   **b, "one_process_losses": ref["losses"],
-                   "one_process_grad_norms": ref["grad_norms"],
-                   "one_process_step_ms": ref["step_ms"],
-                   "one_process_max_memory_allocated_gb":
-                       ref["max_memory_allocated_gb"],
-                   "expected_launches_per_step": expect,
-                   "expected_ep_collectives_per_step": ep_expect,
-                   "expected_collectives_per_step": data_expect}
-            emit(row)
-            rows.append(row)
-            # the losses always; the gradient norms where capacity is
-            # ample, since under pressure the EP round admits per lane and
-            # per local expert what the single-host dispatch admits (and
-            # re-routes) per expert over all tokens, as the reference's
-            # does
-            gated = list(zip(b["losses"], ref["losses"]))
-            if cf is not None:
-                gated += list(zip(b["grad_norms"], ref["grad_norms"]))
-            for x, y in gated:
-                if not math.isfinite(x) or abs(x - y) > 2e-2 * abs(y):
-                    bad.append(f"{policy} cf {cf} rank {r}: {x} against "
-                               f"{y}")
-            if sum(b["skipped"]) or b["local_experts"] != local.n_experts \
-                    or any(n != expect for n in b["launches"]) \
-                    or any(n != ep_expect for n in b["ep_collectives"]) \
-                    or any(n != data_expect for n in b["collectives"]):
-                bad.append(f"{policy} rank {r}: skipped {b['skipped']}, "
-                           f"launches {b['launches']}, ep collectives "
-                           f"{b['ep_collectives']}, collectives "
-                           f"{b['collectives']}")
+    # (b) on (expert 2, data 1), then (c) one lc case on (expert 2, data 2)
+    for data, check, cases in ((1, "bf16", plan["cases"]),
+                               (2, "bf16_data2", (("lc", None, 2),))):
+        got = tp_spawn(dict(plan, world=2 * data, data=data, cases=cases))
+        for i, (policy, cf, steps) in enumerate(cases):
+            data_expect = expected_collectives(cfg, policy, 2,
+                                               StepConfig().n_buckets)
+            if data > 1:
+                # fault N's repair: the EP round all-gathers the data
+                # ranks' token rows once per MoE layer and forward, the
+                # remat recompute's included
+                data_expect["all_gather"] += 2 * 2 * layers
+            ref = one[cf]
+            for r in range(2 * data):
+                b = got[r][i]
+                row = {"phase": "ep_train", "check": check, "rank": r,
+                       "card": card, "arch": cfg.name, "layers": layers,
+                       "mesh": f"expert 2, data {data}, model 1",
+                       "backend": "gloo",
+                       "policy": policy, "seq_len": 1024, "global_batch": 8,
+                       "microbatches": 2, "capacity_factor":
+                           cf or cfg.moe_capacity_factor,
+                       "capacity": M.capacity(4096, cfg.n_experts,
+                                              cfg.top_k,
+                                              cf or cfg.moe_capacity_factor),
+                       **b, "one_process_losses": ref["losses"],
+                       "one_process_grad_norms": ref["grad_norms"],
+                       "one_process_step_ms": ref["step_ms"],
+                       "one_process_max_memory_allocated_gb":
+                           ref["max_memory_allocated_gb"],
+                       "expected_launches_per_step": expect,
+                       "expected_ep_collectives_per_step": ep_expect,
+                       "expected_collectives_per_step": data_expect}
+                emit(row)
+                rows.append(row)
+                # the losses always; the gradient norms where capacity is
+                # ample, since under pressure the EP round admits per lane
+                # and per local expert what the single-host dispatch
+                # admits (and re-routes) per expert over all tokens, as
+                # the reference's does
+                # on a data axis of 2 each data rank's loss is its rows'
+                # mean: the mean over the ranks is the batch's
+                losses = [sum(got[k][i]["losses"][t] for k in got) / len(got)
+                          for t in range(steps)] if data > 1 else b["losses"]
+                gated = list(zip(losses, ref["losses"]))
+                if cf is not None:
+                    gated += list(zip(b["grad_norms"], ref["grad_norms"]))
+                for x, y in gated:
+                    if not math.isfinite(x) or abs(x - y) > 2e-2 * abs(y):
+                        bad.append(f"data {data} {policy} cf {cf} rank {r}: "
+                                   f"{x} against {y}")
+                if sum(b["skipped"]) \
+                        or b["local_experts"] != local.n_experts \
+                        or any(n != expect for n in b["launches"]) \
+                        or any(n != ep_expect for n in b["ep_collectives"]) \
+                        or any(n != data_expect for n in b["collectives"]):
+                    bad.append(f"data {data} {policy} rank {r}: skipped "
+                               f"{b['skipped']}, launches {b['launches']}, "
+                               f"ep collectives {b['ep_collectives']}, "
+                               f"collectives {b['collectives']}")
     if bad:
         raise AssertionError(f"ep_train: {bad}")
     return rows
@@ -3293,6 +3342,256 @@ def phase_multi_pod(torch, cfg, card: str, layers: int = 2) -> list:
 
 
 # ---------------------------------------------------------------------------
+# Phase 24: context-parallel decode caches
+# ---------------------------------------------------------------------------
+
+
+def cp_expected(cfg, m: int, heads: bool) -> tuple:
+    """The context group's and the model axis's collectives per decode
+    step of a dense, moe or hybrid config on a context-parallel cache: per
+    attention layer two all-reduces on the context group (the scores'
+    maximum, then the sums and values); on ``m`` model ranks (None at 1)
+    the embedding's all-reduce, per layer attention's ``wo`` where the
+    heads split, the mamba mixer's two and the FFN's, and where ``heads``
+    (the time axis over the model ranks and the heads split) one
+    all-gather of the query and new K/V heads per layer."""
+    from repro_torch.distributed.sharding import attn_split
+
+    L = cfg.n_layers
+    zero = dict.fromkeys(("all_reduce", "reduce_scatter", "all_gather",
+                          "all_to_all", "send_recv"), 0)
+    if m == 1:
+        return zero | {"all_reduce": 2 * L}, None
+    per = (1 if attn_split(cfg, m) else 0) + 1 + \
+        (2 if cfg.family == "hybrid" else 0)
+    return zero | {"all_reduce": 2 * L}, zero | {
+        "all_reduce": 1 + L * per, "all_gather": L if heads else 0}
+
+
+def cp_decode_rank_run(torch, rank: int, plan: dict) -> dict:
+    """One rank of :func:`phase_cp_decode` on a ``(data, model)`` mesh of
+    ``plan["mesh"]``: for each case, the whole cache from the seed, this
+    rank's block of it (``cp_local_cache``), the decode steps on the block
+    over the context group (launches counted), then the same steps on
+    the whole cache in this process alone; this rank's vocab shard of
+    both runs' logits, the block against the whole cache's, the
+    collectives, bytes and seconds."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.comm import Collectives, context_comm
+    from repro_torch.distributed.sharding import (
+        axis_sizes, cache_layout, cp_local_cache, tp_local_params)
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import model as TM
+    from repro_torch.tree import tree_leaves
+
+    dev = plan["dev"]
+    D, m = plan["mesh"]
+    mesh = make_test_mesh(data=D, model=m, device_type="cpu")
+    mr = dist.get_rank(mesh.get_group("model"))
+    out = []
+    for case in plan["cases"]:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(
+            get_config(case["arch"], smoke=plan["smoke"]), dtype="float32",
+            n_layers=case["layers"])
+        B, L, steps = case["batch"], case["cache_len"], case["steps"]
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        params = TM.init_params(cfg, gen, device=dev)
+        toks = torch.randint(0, cfg.vocab, (B, steps), generator=gen,
+                             device=dev)
+        whole = TM.init_cache(cfg, B, L, device=dev, mesh=None)
+        for t in tree_leaves(whole):
+            t.normal_(generator=gen).mul_(0.5)
+        win = cfg.sliding_window
+        T = min(L, win) if win > 0 else L
+        lay = cache_layout(cfg, B, T, mesh)
+        cp = context_comm(mesh, lay.time)
+        tp = Collectives(mesh.get_group("model")) if m > 1 else None
+        local = tp_local_params(params, cfg, mr, m) if m > 1 else params
+        block = cp_local_cache(whole, cfg, mesh, rank)
+        index = [torch.tensor(case["start"] + t, device=dev)
+                 for t in range(steps)]
+
+        def run(p, cache, **kw):
+            logits = []
+            with torch.no_grad():
+                for t in range(steps):
+                    lg, cache = TM.decode_step(p, cfg, cache, {
+                        "tokens": toks[:, t:t + 1],
+                        "cache_index": index[t]}, **kw)
+                    logits.append(lg.float())
+            return torch.stack(logits)
+
+        sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+        setup_s = time.perf_counter() - t0
+        sync()
+        zero_counters()
+        t0 = time.perf_counter()
+        got = run(local, block, tp=tp, cp=cp)
+        sync()
+        cp_s = time.perf_counter() - t0
+        launches = read_counters()
+        want = run(params, whole)
+        V = got.shape[-1]
+        want = want[..., mr * V:(mr + 1) * V]
+        # the block against the whole cache's: bit for bit where no step
+        # wrote, within the tolerance where one did (every mamba state is
+        # written at every step)
+        written = torch.tensor([min(i, T - 1) if not win else i % T
+                                for i in range(case["start"],
+                                               case["start"] + steps)])
+        same, err, scale = True, 0.0, 0.0
+        for (a, b) in zip(tree_leaves(block), tree_leaves(
+                cp_local_cache(whole, cfg, mesh, rank))):
+            keep = torch.ones(a.shape, dtype=torch.bool, device=a.device)
+            if a.ndim >= 4 and a.shape[-3] * cp.size == T and \
+                    a.shape[-1] == cfg.head_dim:
+                lo = cp.rank * a.shape[-3]
+                mine = written[(written >= lo) & (written < lo + a.shape[-3])]
+                keep[..., (mine - lo).tolist(), :, :] = False
+            else:
+                keep[...] = False
+            same = same and bool(torch.equal(a[keep], b[keep]))
+            if (~keep).any():
+                err = max(err, float((a[~keep] - b[~keep]).abs().max()))
+                scale = max(scale, float(b[~keep].abs().max()))
+        nbytes = lambda tree: sum(t.numel() * t.element_size()
+                                  for t in tree_leaves(tree))
+        out.append({
+            "logits": got.cpu().numpy(), "want": want.cpu().numpy(),
+            "unwritten_bitwise": same, "written_max_abs_err": err,
+            "written_max_abs_ref": scale,
+            "cache_bytes": nbytes(block), "whole_cache_bytes": nbytes(whole),
+            "c": cp.size, "time_axes": list(lay.time),
+            "cp": dict(cp.counts), "tp": dict(tp.counts) if tp else None,
+            "launches": launches, "setup_s": setup_s, "cp_decode_s": cp_s})
+        del params, local, whole, block, got, want
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+#: phase 24's cases, by mesh (data, model): (arch, layers, batch, cache
+#: length); the first index is 8 before the first block boundary (rank 0's
+#: block ends: every rank holds T / (data · model) positions), or in a
+#: ring cache 8 before its end, where the writes wrap to rank 0's block
+CP_CASES = {(1, 2): (("granite-moe-1b-a400m", 4, 8, 32768),
+                     ("hymba-1.5b", 4, 8, 32768)),
+            (2, 2): (("granite-moe-1b-a400m", 4, 1, 32768),)}
+
+
+def phase_cp_decode(torch, card: str, smoke: bool = False,
+                    dev: str = "cuda") -> list:
+    """Context-parallel decode caches (the reference's
+    ``_cache_shardings`` layout): :data:`CP_CASES` on gloo processes on
+    the one card (:func:`tp_spawn`, plans of kind ``"cp_decode"``), 16
+    decode steps each, every rank against the same steps on the whole
+    cache in its own process.  Gates: logits max |Δ| / max |ref| ≤ 2e-5
+    on every rank's vocab shard, the tokens (argmax over the gathered
+    vocab) equal; each rank's final block bit for bit the whole cache's
+    where no step wrote, within 2e-5 of max |ref| where one did (past the
+    first layer a written K/V comes from the layer's input, which the
+    blocks' combined softmax sums round otherwise than one sum over the
+    whole cache); cache bytes the whole cache's over the context group's
+    size; the context and model groups' collectives exactly
+    :func:`cp_expected` per step; ``moe_gmm`` once per MoE layer and
+    step on each rank.  ``smoke`` and ``dev="cpu"``: the rehearsal at
+    SMOKE widths on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import (
+        MeshShape, attn_split, cache_layout)
+
+    steps = 16
+    rows, bad = [], []
+    for mesh_shape, group in CP_CASES.items():
+        cases = []
+        for arch, layers, B, L in group:
+            L = 64 if smoke else L
+            win = get_config(arch, smoke=smoke).sliding_window
+            start = min(L, win) - 8 if win else \
+                L // (mesh_shape[0] * mesh_shape[1]) - 8
+            cases.append({"arch": arch, "layers": layers, "batch": B,
+                          "cache_len": L, "start": start, "steps": steps})
+        t0 = time.perf_counter()
+        got = tp_spawn({"kind": "cp_decode", "world": mesh_shape[0] *
+                        mesh_shape[1], "dev": dev, "smoke": smoke,
+                        "mesh": mesh_shape, "cases": cases})
+        seconds = time.perf_counter() - t0
+        D, m = mesh_shape
+        mesh = MeshShape(("data", "model"), mesh_shape)
+        for i, case in enumerate(cases):
+            cfg = dataclasses.replace(
+                get_config(case["arch"], smoke=smoke),
+                n_layers=case["layers"])
+            win = cfg.sliding_window
+            T = min(case["cache_len"], win) if win else case["cache_len"]
+            lay = cache_layout(cfg, case["batch"], T, mesh)
+            heads = m > 1 and attn_split(cfg, m) and "model" in lay.time
+            cp_want, tp_want = cp_expected(cfg, m, heads)
+            per = [got[r][i] for r in range(D * m)]
+            cat = lambda k, d: np_concat([per[d * m + j][k]
+                                          for j in range(m)])
+            logits = [cat("logits", d) for d in range(D)]
+            want = cat("want", 0)
+            err = max(float(abs(x - want).max()) for x in logits)
+            ref = float(abs(want).max())
+            tokens_equal = all(bool((x[..., :cfg.vocab].argmax(-1) ==
+                                     want[..., :cfg.vocab].argmax(-1)).all())
+                               for x in logits)
+            # the wrappers count launches of the kernels, on the card
+            moe = case["layers"] * steps if cfg.n_experts and \
+                dev == "cuda" else 0
+            row = {"phase": "cp_decode", "card": card, "arch": cfg.name,
+                   "layers": case["layers"], "mesh": f"data {D}, model {m}",
+                   "backend": "gloo", "batch": case["batch"],
+                   "cache_len": case["cache_len"], "T": T,
+                   "time_axes": per[0]["time_axes"], "c": per[0]["c"],
+                   "first_index": case["start"], "steps": steps,
+                   "logits_max_abs_err": err, "logits_max_abs_ref": ref,
+                   "tokens_equal": tokens_equal,
+                   "unwritten_bitwise": [p["unwritten_bitwise"]
+                                         for p in per],
+                   "written_max_err_over_max": max(
+                       p["written_max_abs_err"] /
+                       max(p["written_max_abs_ref"], 1e-30) for p in per),
+                   "cache_bytes_per_rank": [p["cache_bytes"] for p in per],
+                   "whole_cache_bytes": per[0]["whole_cache_bytes"],
+                   "cp_collectives": per[0]["cp"],
+                   "tp_collectives": per[0]["tp"],
+                   "expected_cp_collectives_per_step": cp_want,
+                   "expected_tp_collectives_per_step": tp_want,
+                   "moe_gmm_launches": [p["launches"]["moe_gmm"]
+                                        for p in per],
+                   "cp_decode_s": [p["cp_decode_s"] for p in per],
+                   "setup_s": [p["setup_s"] for p in per],
+                   "ranks_s": seconds}
+            emit(row)
+            rows.append(row)
+            per_step = lambda d: d and {k: v * steps for k, v in d.items()}
+            if err > 2e-5 * ref or not tokens_equal or \
+                    not all(row["unwritten_bitwise"]) or \
+                    row["written_max_err_over_max"] > 2e-5 or \
+                    any(b * per[0]["c"] != per[0]["whole_cache_bytes"]
+                        for b in row["cache_bytes_per_rank"]) or \
+                    any(p["cp"] != per_step(cp_want) or
+                        p["tp"] != per_step(tp_want) for p in per) or \
+                    any(p["launches"] != dict(
+                        dict.fromkeys(p["launches"], 0), moe_gmm=moe)
+                        for p in per):
+                bad.append(row)
+    if bad:
+        raise AssertionError(f"cp_decode: {bad}")
+    return rows
+
+
+def np_concat(arrays: list):
+    import numpy as np
+    return np.concatenate(arrays, axis=-1)
+
+
+# ---------------------------------------------------------------------------
 # Phases 15-16: the encoder-decoder and vision-language families
 # ---------------------------------------------------------------------------
 
@@ -3519,7 +3818,8 @@ def main() -> int:
     timed(phase_dryrun, torch, cfg, smi, tp_rows)
     # expert parallelism under autograd (phase 20): the EP round forward
     # and backward on one NCCL rank against moe_apply, then two expert
-    # ranks training full-width granite on the one card over gloo
+    # ranks training full-width granite on the one card over gloo, then
+    # four at (expert 2, data 2)
     ep_rows = timed(phase_ep_train, torch, cfg, smi)
     # tensor-parallel serving (phase 21): moe_gmm at one model rank of 2's
     # serving shapes (E 16 at a decode step's C 8 and a prefill round's C
@@ -3543,6 +3843,9 @@ def main() -> int:
     # a multi-pod mesh with a model axis (phase 23): eight gloo ranks at
     # (pod 2, data 2, model 2), granite at full width, 2 of its 24 layers
     timed(phase_multi_pod, torch, cfg, smi)
+    # context-parallel decode caches (phase 24): granite and hymba-1.5b at
+    # full width, 4 layers each, on 2 and 4 gloo ranks
+    timed(phase_cp_decode, torch, smi)
 
     moe_main = next(r for r in moe_rows
                     if r["C"] == 8 and r["dtype"] == "bfloat16")

@@ -154,10 +154,13 @@ def mesh_group(mesh, axes):
 class Collectives:
     """One group's collectives, counted by kind in :attr:`counts`.  Over a
     :class:`MeshGroup` (the dry run) nothing is issued: the results have
-    the right shapes and ``t``'s values are left as they are."""
+    the right shapes and ``t``'s values are left as they are.  ``axes``:
+    the mesh axes the group spans, where a caller reads them (a
+    context-parallel group, :func:`context_comm`)."""
 
-    def __init__(self, group=None):
+    def __init__(self, group=None, axes: tuple = ()):
         self.group = group if group is not None else dist.group.WORLD
+        self.axes = tuple(axes)
         self.traced = isinstance(self.group, MeshGroup)
         if self.traced:
             self.size, self.rank = self.group.size, 0
@@ -231,6 +234,18 @@ def expert_comm(mesh, cfg) -> Optional[Collectives]:
     if mesh is None or not ep_takes_experts(cfg, expert_axis_size(mesh)):
         return None
     return Collectives(mesh_group(mesh, EXPERT_AXIS))
+
+
+def context_comm(mesh, axes) -> Optional[Collectives]:
+    """A :class:`Collectives` over the mesh axes ``axes`` that carry a
+    decode cache's time axis (``sharding.cache_layout(...).time``), which
+    it keeps as its ``axes``; None when they span one rank (``T`` whole).
+    A rank's place in the group is its index over ``axes``, row-major: the
+    block of ``T`` it holds."""
+    sizes = axis_sizes(mesh)
+    if math.prod(sizes[a] for a in axes) <= 1:
+        return None
+    return Collectives(mesh_group(mesh, axes), axes=axes)
 
 
 def model_comm(mesh) -> Optional[Collectives]:

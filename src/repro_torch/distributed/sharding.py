@@ -57,14 +57,20 @@ Serving on a ``(data D, model m)`` mesh: a rank's decode caches
 (``models.model.init_cache`` on the mesh) hold its ``B / D`` rows, its KV
 heads (one where ``KV < m``) and its ``d_inner / m`` channels;
 :func:`tp_local_cache` cuts a whole cache tree so and
-:func:`tp_assemble_cache` puts the ranks' back together.  The reference
-stores decode caches otherwise (T over ``"model"``).
+:func:`tp_assemble_cache` puts the ranks' back together.  Context-parallel
+decode caches (``init_cache(..., context=True)``) are the reference's
+layout (``launch/dryrun.py`` ``_cache_shardings`` there,
+:func:`cache_layout` here): the self-attention KV leaves' time axis over
+``"model"`` (every KV head on every model rank) or, where the batch does
+not split over the data axes, over the data axes and ``"model"``;
+:func:`cp_local_cache` and :func:`cp_assemble_cache` cut and assemble.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import math
 from dataclasses import dataclass, replace
 from typing import Optional
 
@@ -746,3 +752,179 @@ def tp_assemble_cache(pieces: list, cfg):
                      ("split", rows, 1), D, cfg)
 
     return walk(pieces, "")
+
+
+# ---------------------------------------------------------------------------
+# Context-parallel decode caches (the reference's _cache_shardings)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class CacheLayout:
+    """Where a decode cache's self-attention KV leaves ``(..., B, T, KV,
+    dh)`` lie over a mesh: ``batch`` the axes that carry ``B`` (the fsdp
+    axes, or none), ``time`` the axes that carry ``T`` (the context group,
+    in mesh order; none: ``T`` whole).  Where ``time`` holds ``"model"``
+    every KV head is on every model rank."""
+
+    batch: tuple
+    time: tuple
+
+
+def cache_layout(cfg, B: int, T: int, mesh, *, nested: bool = False
+                 ) -> CacheLayout:
+    """The reference's rule (``launch/dryrun.py`` ``_cache_shardings``)
+    for self-attention KV leaves of batch ``B`` and time ``T`` (a
+    sliding-window cache's ring) on ``mesh``: ``B`` over the fsdp axes
+    when they divide it, ``T`` then over ``"model"`` when it divides;
+    else ``T`` over the fsdp axes and ``"model"`` when that divides it,
+    else over the fsdp axes alone, else whole.  ``nested`` (vlm's
+    ``self_layers``, 6-d): ``B`` over the fsdp axes when they divide it,
+    ``T`` over ``"model"`` when it divides, independently."""
+    sizes = axis_sizes(mesh)
+    fa = fsdp_axes(mesh)
+    D = math.prod(sizes[a] for a in fa)
+    m = sizes.get("model", 1)
+    model = ("model",) if "model" in sizes else ()
+    if nested:
+        return CacheLayout(fa if B % D == 0 else (),
+                           model if T % m == 0 else ())
+    if B % D == 0:
+        return CacheLayout(fa, model if T % m == 0 else ())
+    if T % (D * m) == 0:
+        return CacheLayout((), fa + model)
+    if T % D == 0:
+        return CacheLayout((), fa)
+    return CacheLayout((), ())
+
+
+def _mesh_coords(mesh, rank: int) -> dict:
+    """``{axis: index}`` of mesh rank ``rank`` (row-major over the axes)."""
+    out = {}
+    for a, n in reversed(list(axis_sizes(mesh).items())):
+        out[a] = rank % n
+        rank //= n
+    return out
+
+
+def _flat(coords: dict, sizes: dict, axes: tuple) -> tuple:
+    """``(index, count)`` of ``coords`` over ``axes``, row-major."""
+    k, n = 0, 1
+    for a in axes:
+        k, n = k * sizes[a] + coords[a], n * sizes[a]
+    return k, n
+
+
+def _self_kv(keys: list) -> bool:
+    return keys[-1] in ("k", "v") and "cross_kv" not in keys
+
+
+def _cp_cuts(path: str, shape: tuple, cfg, mesh, rank: int) -> list:
+    """How mesh rank ``rank``'s block of one leaf of a whole cache (of
+    ``shape``) is cut: ``[(dim, kind, index, n)]``, ``kind`` ``"block"``
+    (block ``index`` of ``n`` along ``dim``) or ``"head"`` (head ``index``
+    of ``n``, one wide).  Self-attention KV leaves follow
+    :func:`cache_layout` (their heads whole where ``T`` is over
+    ``"model"``, else as :func:`tp_local_cache` cuts them); ``cross_kv``
+    and the mamba leaves split ``B`` over the fsdp axes where they divide
+    it, their heads or ``Di`` as :func:`tp_local_cache` does."""
+    keys = path.strip("/").split("/")
+    sizes = axis_sizes(mesh)
+    coords = _mesh_coords(mesh, rank)
+    fa = fsdp_axes(mesh)
+    m = sizes.get("model", 1)
+    mr = coords.get("model", 0)
+    B = shape[-3] if keys[-1] in ("conv", "h") else shape[-4]
+    if _self_kv(keys):
+        lay = cache_layout(cfg, B, shape[-3], mesh,
+                           nested=len(shape) == 6)
+        batch, time = lay.batch, lay.time
+    else:
+        batch = fa if B % math.prod(sizes[a] for a in fa) == 0 else ()
+        time = ()
+    cuts = []
+    rule, rows = _cache_rules(path, cfg, m)
+    if batch:
+        cuts.append((rows, "block", *_flat(coords, sizes, batch)))
+    if time:
+        cuts.append((-3, "block", *_flat(coords, sizes, time)))
+    if m > 1 and "model" not in time:
+        if rule[0] == "split":
+            cuts.append((rule[1], "block", mr, m))
+        elif rule[0] == "head":
+            cuts.append((-2, "head", mr // (m // cfg.n_kv_heads),
+                         cfg.n_kv_heads))
+    return cuts
+
+
+def _cp_walk(tree, fn, path=""):
+    if isinstance(tree, dict):
+        return {k: _cp_walk(v, fn, f"{path}/{k}") for k, v in tree.items()}
+    return fn(tree, path)
+
+
+def _cp_block(t, path: str, cfg, mesh, rank: int):
+    """Mesh rank ``rank``'s block of the whole leaf ``t``: a view."""
+    for dim, kind, k, n in _cp_cuts(path, tuple(t.shape), cfg, mesh, rank):
+        w = 1 if kind == "head" else t.shape[dim] // n
+        t = t.narrow(dim, k * w, w)
+    return t
+
+
+def cp_local_cache(cache, cfg, mesh, rank: int):
+    """The cache tree that mesh rank ``rank`` (row-major over ``mesh``'s
+    axes) holds in the context-parallel layout, cut from a whole one
+    (copies): the layout of ``models.model.init_cache(..., mesh=mesh,
+    context=True)``."""
+    return _cp_walk(cache, lambda t, path: _cp_block(
+        t, path, cfg, mesh, rank).clone(memory_format=torch.contiguous_format))
+
+
+def cp_local_shapes(cache, cfg, mesh):
+    """The shapes of :func:`cp_local_cache`'s blocks (alike on every
+    rank), from a whole cache tree of any tensors (meta ones too)."""
+    return _cp_walk(cache, lambda t, path: _cp_block(t, path, cfg, mesh,
+                                                     0).shape)
+
+
+def cp_assemble_cache(pieces: list, cfg, mesh, bsz: int, cache_len: int):
+    """The whole cache tree from every mesh rank's (``pieces[rank]``):
+    the inverse of :func:`cp_local_cache`, bit for bit, for a cache of
+    ``bsz`` rows and ``cache_len`` positions (what decides the layout)."""
+    win = cfg.sliding_window
+    T = min(cache_len, win) if win > 0 else cache_len
+
+    def whole(t, path):
+        keys = path.strip("/").split("/")
+        shape = list(t.shape)
+        if keys[-1] in ("conv", "h"):
+            shape[-3] = bsz
+        else:
+            shape[-4] = bsz
+            if _self_kv(keys):
+                shape[-3] = T
+        # the whole width of the heads or Di, where a cut narrows them
+        for dim, kind, _, n in _cp_cuts(path, tuple(shape), cfg, mesh, 0):
+            if dim not in (-3, -4):
+                shape[dim] = n if kind == "head" else t.shape[dim] * n
+        return shape
+
+    def assemble(leaves, path):
+        shape = whole(leaves[0], path)
+        out = leaves[0].new_zeros(shape)
+        for r, t in enumerate(leaves):
+            view = out
+            for dim, kind, k, n in _cp_cuts(path, tuple(shape), cfg, mesh,
+                                             r):
+                w = 1 if kind == "head" else view.shape[dim] // n
+                view = view.narrow(dim, k * w, w)
+            view.copy_(t)
+        return out
+
+    def walk(nodes, path=""):
+        if isinstance(nodes[0], dict):
+            return {k: walk([n[k] for n in nodes], f"{path}/{k}")
+                    for k in nodes[0]}
+        return assemble(nodes, path)
+
+    return walk(pieces)

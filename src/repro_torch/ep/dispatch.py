@@ -25,7 +25,15 @@ shard is a process of the expert group.  Every rank is given the whole
 ``(T, d)`` token matrix (the reference's global array), takes its ``T/S``
 rows and its ``E/S`` experts' weights, and the round ends with the
 shards' outputs all-gathered back to ``(T, d)`` (and, when asked for,
-their stats summed).  The round is differentiable, as the reference's
+their stats summed).  Beside a data axis (``dp=``) a rank holds only its
+data rank's rows: they are all-gathered over the data ranks first, so the
+round runs on the whole batch's ``T = D·T_local`` rows with lanes and
+capacities over ``T``, as the reference's ``P("expert", None)`` hands
+each expert shard ``T/S`` rows of the global array, and the rank keeps
+its own rows of the result (the gather's backward is a slice: an output
+row depends only on its own token once admission is fixed).  Each rank
+then runs the expert FFN over ``D×`` the rows its data rank alone would
+give it.  The round is differentiable, as the reference's
 ``shard_map`` is under ``jax.grad``: its collectives are the autograd
 functions of :mod:`repro_torch.distributed.comm` (the exchanges run
 again on the gradients, the token block's gradient is all-gathered, the
@@ -62,6 +70,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..distributed.comm import (
     Collectives, copy_to_tp, gather_from_ep, mesh_group, reduce_from_tp,
@@ -207,13 +216,21 @@ def _ep_shard(x, router, w1, w3, w2, *, comm, E: int, S: int, K: int,
 def ep_dispatch_combine(p: dict, cfg, x, *, mesh=None,
                         use_kernel: bool = True, impl: str = "all_to_all",
                         return_stats: bool = False,
-                        dead_shards: tuple = (), comm=None, tp=None):
+                        dead_shards: tuple = (), comm=None, tp=None,
+                        dp=None):
     """Expert-parallel dispatch → FFN → combine over the ``expert`` axis.
 
     ``x`` is the flattened ``(T, d)`` token matrix, the same on every rank
-    of the expert group; the result is too.  Requires ``T % S == 0 and E
-    % S == 0`` for the expert axis's size ``S`` (``S = 1`` runs the round
-    on one rank).  ``comm`` (a
+    of the expert group; the result is too.  Requires ``E % S == 0`` for
+    the expert axis's size ``S`` (``S = 1`` runs the round on one rank); a
+    token count not divisible by ``S`` is zero-padded up to the next
+    multiple and sliced back (``padded_tokens`` in the stats), as the
+    reference's ``moe_apply`` pads.  ``dp`` (a data-axis ``Collectives``
+    of ``D > 1`` ranks): ``x`` is data rank ``r``'s rows ``[r·T, (r+1)·T)``
+    of a ``D·T``-row matrix; one all-gather over ``dp`` makes the whole
+    matrix, the round runs on it (lanes and capacities over ``D·T``), and
+    the result is this rank's rows (backward, the gather keeps this rank's
+    block of the gradient and issues nothing).  ``comm`` (a
     :class:`~repro_torch.distributed.comm.Collectives` over the expert
     group) issues and counts the collectives; without it one is made over
     ``mesh``'s expert axis.  ``tp`` (a ``Collectives`` over the model
@@ -238,13 +255,22 @@ def ep_dispatch_combine(p: dict, cfg, x, *, mesh=None,
     or drops (LC) before the collective — see :func:`ep_round` for the
     retry loop that discovers the dead set.
     """
-    T, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     S = comm.size if comm is not None else expert_axis_size(mesh)
-    if S < 1 or T % S or E % S:
+    if S < 1 or E % S:
         raise ValueError(
-            f"EP dispatch needs an expert axis dividing T={T} and "
-            f"E={E}; mesh axes {getattr(mesh, 'mesh_dim_names', None)}")
+            f"EP dispatch needs an expert axis dividing E={E}; mesh axes "
+            f"{getattr(mesh, 'mesh_dim_names', None)}")
+    if dp is not None and dp.size == 1:
+        dp = None
+    rows = x.shape[0]
+    if dp is not None:
+        x = gather_from_ep(x, dp)          # every data rank's rows
+    n_rows = x.shape[0]
+    pad = (-n_rows) % S
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+    T, d = x.shape
     dead_shards = tuple(sorted({int(s) for s in dead_shards}))
     if dead_shards:
         bad = [s for s in dead_shards if not 0 <= s < S]
@@ -293,7 +319,9 @@ def ep_dispatch_combine(p: dict, cfg, x, *, mesh=None,
         # "lc" keeps its static single-round semantics on the EP substrate
         # too (no reassignment), so the LC-vs-DLBC comparison holds
         reassign=cfg.moe_dispatch != "lc", dead_shards=dead_shards, tp=tp)
-    y = gather_from_ep(y, comm)
+    y = gather_from_ep(y, comm)[:n_rows]
+    if dp is not None:
+        y = y[dp.rank * rows:(dp.rank + 1) * rows]
     if not return_stats:
         return y
     sent, received, reassigned, admitted = comm.all_reduce(stats_row)
@@ -312,6 +340,7 @@ def ep_dispatch_combine(p: dict, cfg, x, *, mesh=None,
         "dropped": total_pairs - admitted,
         "n_shards": S,
         "lane_capacity": C_lane,
+        "padded_tokens": pad,
     }
     return y, stats
 

@@ -9,7 +9,8 @@ as a :class:`~repro_torch.distributed.sharding.MeshShape`) runs its step
 on the meta device: its compute shards of the params
 (``tp_local_params``), its FSDP pieces of the optimizer state
 (``fsdp_layout``), its rows of the batch and its cache
-(``init_cache`` on the mesh), then the train step (``build_train_step``:
+(``init_cache`` on the mesh, a decode cell's in the reference's
+context-parallel layout), then the train step (``build_train_step``:
 forward, backward and AdamW, ``remat`` on), the prefill or one decode
 step.  Shapes and dtypes only: nothing is allocated and nothing is
 launched, and CUDA is never initialised (``torch.cuda.is_initialized()``
@@ -36,12 +37,15 @@ Each record has the reference's keys where they mean the same (``arch``,
 * ``kernels`` — each hand-written kernel's calls, FLOPs and bytes;
 * ``collectives`` — a train step's counts per mesh axis (the step's
   ``metrics``);
-* ``layout`` — where the port lays a decode cell out otherwise than the
-  reference (``launch/dryrun.py`` ``_cache_shardings`` there): a batch
-  smaller than the data ranks (``long_500k``, B 1) stays whole on every
-  data rank, and heads that do not split over the model ranks stay whole
-  on each, where the reference shards the cache's time axis over the
-  data or model ranks (context parallelism, which the port lacks).
+* ``layout`` — where the port lays a decode cell's cache out otherwise
+  than the reference (``launch/dryrun.py`` ``_cache_shardings`` there):
+  only ``cross_kv``, whose heads the port splits over the model ranks
+  where the reference, whose rule splits only its time axis, holds it
+  whole on each (1500 frames or 1601 patches do not divide ``"model"``).
+  The self-attention caches follow the reference's rule
+  (``sharding.cache_layout``: the time axis over ``"model"``, or at B 1
+  over the data axes and ``"model"``), and decode runs context-parallel
+  over the axes that carry it.
 
 ``fits_hbm`` holds the rank's argument and activation bytes against
 :data:`HBM_BYTES`.  Records go to ``experiments/torch_dryrun/``, one file
@@ -64,10 +68,12 @@ import torch
 
 from ..configs import ARCH_IDS, SHAPES, get_config, input_specs
 from ..configs import shape_applicable
-from ..distributed.comm import Collectives, mesh_group, model_comm
+from ..distributed.comm import (
+    Collectives, context_comm, mesh_group, model_comm,
+)
 from ..distributed.sharding import (
-    MeshShape, attn_split, axis_sizes, data_size, fsdp_axes, mesh_context,
-    tp_local_params,
+    attn_split, axis_sizes, cache_layout, data_size, fsdp_axes,
+    mesh_context, tp_local_params,
 )
 from ..models import model as MDL
 from ..roofline.analysis import (
@@ -124,13 +130,6 @@ class _SavedBytes:
                                                         lambda t: t)
 
 
-def _whole_batch_mesh(mesh) -> MeshShape:
-    """``mesh`` with its data axes at 1: every data rank holds every row."""
-    return MeshShape(tuple(mesh.mesh_dim_names), tuple(
-        1 if a in ("pod", "data") else n
-        for a, n in axis_sizes(mesh).items()))
-
-
 def trace_step(cfg, shape, mesh, *, policy: str = "afe",
                schedule: str = "masked") -> dict:
     """Trace rank 0's step of ``shape`` (train, prefill or decode) for
@@ -172,18 +171,12 @@ def trace_step(cfg, shape, mesh, *, policy: str = "afe",
             params = tp_local_params(pshapes, cfg, 0, m) \
                 if tp is not None else pshapes
             whole = B % D != 0
-            if whole:
-                layout = (f"batch {B} < {D} data ranks: every data rank "
-                          "holds the whole batch and its cache (the "
-                          "reference shards the cache's time axis over the "
-                          "data ranks: context parallelism, not ported)")
-            if shape.kind == "decode" and cfg.n_heads and m > 1 \
-                    and not attn_split(cfg, m):
-                layout += ("; " if layout else "") + (
-                    f"{cfg.n_heads} query / {cfg.n_kv_heads} KV heads do "
-                    f"not split over {m} model ranks: every model rank "
-                    "holds every KV head of its rows' cache (the reference "
-                    "shards the cache's time axis over \"model\")")
+            if shape.kind == "decode" and cfg.family in ("encdec", "vlm") \
+                    and m > 1 and attn_split(cfg, m):
+                layout = (f"cross_kv: {cfg.n_kv_heads} KV heads split over "
+                          f"{m} model ranks (the reference holds it whole "
+                          "on each: its time axis does not divide "
+                          "\"model\")")
             rows = B if whole else B // D
             # the MoE layers size capacity over every data rank's rows;
             # rows held whole are not split over the data ranks
@@ -195,10 +188,16 @@ def trace_step(cfg, shape, mesh, *, policy: str = "afe",
                 if shape.kind == "prefill":
                     build_prefill_step(cfg, scfg)(params, batch, dp=dp)
                 else:
-                    cache = MDL.init_cache(
-                        cfg, B, shape.seq_len, device="meta",
-                        mesh=_whole_batch_mesh(mesh) if whole else mesh)
-                    build_decode_step(cfg)(params, cache, batch, dp=dp)
+                    win = cfg.sliding_window
+                    T = min(shape.seq_len, win) if win > 0 \
+                        else shape.seq_len
+                    cp = context_comm(mesh, cache_layout(
+                        cfg, B, T, mesh, nested=cfg.family == "vlm").time)
+                    cache = MDL.init_cache(cfg, B, shape.seq_len,
+                                           device="meta", mesh=mesh,
+                                           context=True)
+                    build_decode_step(cfg)(params, cache, batch, dp=dp,
+                                           cp=cp)
             memory = {"params_bytes": _nbytes(params),
                       "opt_state_bytes": 0,
                       "batch_bytes": _nbytes(batch),

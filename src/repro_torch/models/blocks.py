@@ -125,7 +125,7 @@ def layer_apply(p: dict, cfg, x: torch.Tensor, kind: str, *,
 def layer_decode_apply(p: dict, cfg, x: torch.Tensor, cache: dict,
                        cache_index, kind: str, *,
                        ctx_kv: Optional[dict] = None, tp=None, ep=None,
-                       dp=None):
+                       dp=None, cp=None):
     """One block, one token; ``cache`` = this layer's {"k", "v"} and/or
     {"conv", "h"} ({} for a ``cross`` layer), updated IN PLACE; ``ctx_kv``
     = this layer's precomputed cross K/V {"k", "v"} (B, T, KV, dh) for
@@ -138,7 +138,19 @@ def layer_decode_apply(p: dict, cfg, x: torch.Tensor, cache: dict,
     model rank's (q/k/v column-parallel on its heads, ``wo``, the FFN and
     the mamba ``out_proj`` row-parallel); ``ep``: an expert-axis one when
     the MoE layer takes the EP round (inside the tensor-parallel region
-    when both are given); ``dp`` as in :func:`layer_apply`."""
+    when both are given); ``dp`` as in :func:`layer_apply`.
+
+    ``cp``: the self-attention cache is this rank's block of ``T`` over
+    ``cp``'s ranks (context parallelism, ``models.model.init_cache(...,
+    context=True)``).  The new token's K/V land only in the block that
+    holds its position (clamped to ``T - 1``, or modulo ``T`` in a ring),
+    and attention combines the blocks' partial softmax sums
+    (:func:`~repro_torch.models.layers.decode_attention_cp`).  Where the
+    time axis is over ``"model"`` (``"model"`` in ``cp.axes``) and the
+    heads split over the model ranks, each rank's query, key and value
+    heads are all-gathered over them first (one all-gather on ``tp``;
+    where ``KV < m`` one copy of each KV head is kept), every rank attends
+    with every head over its block, and keeps its own heads for ``wo``."""
     B = x.shape[0]
     h = L.norm_apply(p["ln1"], x, cfg.norm)
     if kind == "ssm":
@@ -148,7 +160,7 @@ def layer_decode_apply(p: dict, cfg, x: torch.Tensor, cache: dict,
         x = x + L.cross_decode_apply(p["attn"], cfg, h, ctx_kv, tp)
         h = L.norm_apply(p["ln2"], x, cfg.norm)
         return x + _ffn(p, cfg, h, kind, tp, ep, dp=dp), cache
-    T = cache["k"].shape[1]
+    T = cache["k"].shape[1] * (cp.size if cp is not None else 1)
     ci = L._per_row(cache_index, B, x.device)
     idx = torch.remainder(ci, T) if cfg.sliding_window > 0 else ci
     pa = p["attn"]
@@ -161,12 +173,24 @@ def layer_decode_apply(p: dict, cfg, x: torch.Tensor, cache: dict,
         pos = ci[:, None]
         q = L.apply_rope(q, pos, cfg.rope_theta)
         k = L.apply_rope(k, pos, cfg.rope_theta)
-    kc = L.kv_cache_update(cache["k"], k, idx)
-    vc = L.kv_cache_update(cache["v"], v, idx)
     valid = torch.clamp(ci + 1, max=T)
-    a = reduce_from_tp(L.dense_apply(
-        pa["wo"], L.decode_attention(q, kc, vc, valid).reshape(B, 1, -1)),
-        atp)
+    if cp is None:
+        kc = L.kv_cache_update(cache["k"], k, idx)
+        vc = L.kv_cache_update(cache["v"], v, idx)
+        o = L.decode_attention(q, kc, vc, valid)
+    else:
+        heads = atp is not None and "model" in cp.axes
+        if heads:
+            q, k, v = _all_heads(q, k, v, cfg, atp)
+        lo = cp.rank * cache["k"].shape[1]
+        idx = torch.clamp(idx, max=T - 1)
+        kc = L.kv_cache_update_block(cache["k"], k, idx, lo)
+        vc = L.kv_cache_update_block(cache["v"], v, idx, lo)
+        o = L.decode_attention_cp(q, kc, vc, valid, cp)
+        if heads:
+            n = o.shape[2] // atp.size
+            o = o[:, :, atp.rank * n:(atp.rank + 1) * n]
+    a = reduce_from_tp(L.dense_apply(pa["wo"], o.reshape(B, 1, -1)), atp)
     if kind == "hybrid":
         y, _ = S.ssm_decode_apply(p["ssm"], cfg, h, cache, tp)
         a = (a + y) * 0.5
@@ -176,6 +200,23 @@ def layer_decode_apply(p: dict, cfg, x: torch.Tensor, cache: dict,
         x = x + L.cross_decode_apply(p["cross"], cfg, h, ctx_kv, tp)
     h = L.norm_apply(p["ln2"], x, cfg.norm)
     return x + _ffn(p, cfg, h, kind, tp, ep, dp=dp), cache
+
+
+def _all_heads(q, k, v, cfg, tp) -> tuple:
+    """Every model rank's query heads and new K/V heads of one decode
+    token ``(B, 1, heads, dh)``, all-gathered over ``tp`` in one call (the
+    heads in rank order); where ``KV < m`` each KV head is held by ``m /
+    KV`` ranks alike, and one copy of each is kept."""
+    B, _, Hl, dh = q.shape
+    KVl = k.shape[2]
+    m = tp.size
+    got = tp.all_gather(torch.cat([q.reshape(B, -1), k.reshape(B, -1),
+                                   v.reshape(B, -1)], -1)[None])
+    got = got.reshape(m, B, Hl + 2 * KVl, dh).transpose(0, 1)
+    q, k, v = got.split((Hl, KVl, KVl), dim=2)
+    if cfg.n_kv_heads < m:
+        k, v = k[:, ::m // cfg.n_kv_heads], v[:, ::m // cfg.n_kv_heads]
+    return tuple(t.reshape(B, 1, -1, dh) for t in (q, k, v))
 
 
 def layer_prefill_apply(p: dict, cfg, x: torch.Tensor, cache: dict,

@@ -206,6 +206,39 @@ def decode_attention(
     return out.reshape(B, 1, H, dh).to(q.dtype)
 
 
+def decode_attention_cp(
+    q: torch.Tensor,        # (B, 1, H, dh): every query head
+    k_block: torch.Tensor,  # (B, T/c, KV, dh): this rank's block of T
+    v_block: torch.Tensor,
+    valid: torch.Tensor,    # (B,) valid entries of the whole cache
+    cp,
+) -> torch.Tensor:
+    """:func:`decode_attention` with the cache's time axis over the ``c``
+    ranks of ``cp`` (context parallelism): this rank holds positions
+    ``[r·T/c, (r+1)·T/c)``.  The scores' maximum is all-reduced (``op=
+    "max"``) first; each rank's ``exp(s - max)`` sums and its weighted sum
+    of values are then all-reduced as one tensor and divided: the online
+    softmax's combine, two all-reduces.  A block with no valid position
+    (masked to ``NEG_INF``) adds ``exp(NEG_INF - max) = 0``: position 0 is
+    always valid, so the maximum is finite and no NaN arises."""
+    B, _, H, dh = q.shape
+    Tl, KV = k_block.shape[1], k_block.shape[2]
+    G = H // KV
+    qg = q.reshape(B, KV, G, dh)
+    s = torch.einsum("bkgd,btkd->bkgt", qg.float(), k_block.float()) \
+        * dh ** -0.5
+    pos = cp.rank * Tl + torch.arange(Tl, device=q.device)
+    mask = pos[None, :] < valid[:, None]                    # (B, T/c)
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    mx = cp.all_reduce(s.amax(dim=-1), op="max")            # (B, KV, G)
+    p = torch.exp(s - mx[..., None])
+    out = torch.einsum("bkgt,btkd->bkgd", p.to(v_block.dtype).float(),
+                       v_block.float())
+    both = cp.all_reduce(torch.cat([out, p.sum(dim=-1)[..., None]], -1))
+    out = both[..., :dh] / both[..., dh:]
+    return out.reshape(B, 1, H, dh).to(q.dtype)
+
+
 def attn_init(gen, cfg, dtype) -> dict:
     d, h = cfg.d_model, cfg.head_dim
     H, KV = cfg.n_heads, cfg.n_kv_heads
@@ -314,6 +347,25 @@ def kv_cache_update(cache_arr: torch.Tensor, new: torch.Tensor,
     idx = torch.clamp(_per_row(idx, B, cache_arr.device), 0, T - 1)
     rows = torch.arange(B, device=cache_arr.device)
     cache_arr[rows, idx] = new[:, 0].to(cache_arr.dtype)
+    return cache_arr
+
+
+def kv_cache_update_block(cache_arr: torch.Tensor, new: torch.Tensor,
+                          idx: torch.Tensor, lo: int) -> torch.Tensor:
+    """Write a one-token K/V slice ``new`` (B, 1, KV, h) IN PLACE into a
+    rank's block ``cache_arr`` (B, T/c, KV, h) of a cache whose time axis
+    is split over ranks, at per-row global positions ``idx`` (B,): a row
+    whose position lies in ``[lo, lo + T/c)`` writes there, every other
+    row leaves the block as it is (a masked write: no rank writes into
+    its own block what another rank owns).  Returns ``cache_arr``."""
+    B, Tl = cache_arr.shape[0], cache_arr.shape[1]
+    local = idx.long() - lo
+    mine = (local >= 0) & (local < Tl)
+    rows = torch.arange(B, device=cache_arr.device)
+    at = torch.clamp(local, 0, Tl - 1)
+    cache_arr[rows, at] = torch.where(mine[:, None, None],
+                                      new[:, 0].to(cache_arr.dtype),
+                                      cache_arr[rows, at])
     return cache_arr
 
 

@@ -48,9 +48,11 @@ from ..distributed.comm import (
     reduce_from_tp,
 )
 from ..distributed.sharding import (
-    current_mesh, data_size, expert_axis_size, mesh_context, model_size,
-    seq_sharded, shard_act, shard_logits, tp_local_config,
+    cp_local_shapes, current_mesh, data_size, expert_axis_size,
+    mesh_context, model_size, seq_sharded, shard_act, shard_logits,
+    tp_local_config,
 )
+from ..tree import tree_map
 from . import blocks as B
 from . import layers as L
 
@@ -330,7 +332,7 @@ def loss_fn(params, cfg, batch, tp=None, **kw):
 
 def init_cache(cfg: ModelConfig, bsz: int, cache_len: int,
                device: Optional[Union[str, torch.device]] = None,
-               mesh=None) -> dict:
+               mesh=None, context: bool = False) -> dict:
     """Zero caches on ``device`` (``None`` = the card), the reference's
     tree: per stack, leaves with its leading layer dims — KV ``{"k",
     "v"}`` of shape ``(L, bsz, T, KV, dh)`` for self attention (a
@@ -351,11 +353,29 @@ def init_cache(cfg: ModelConfig, bsz: int, cache_len: int,
     heads where they do not split (hymba-1.5b's 25 over 2), ``d_inner /
     m`` channels of ``conv`` and ``h``, ``cross_kv`` over the rank's KV
     heads (``distributed.sharding.tp_local_cache`` cuts a whole cache so,
-    ``tp_assemble_cache`` puts one back together).  The reference stores
-    its caches otherwise (``launch/dryrun.py`` ``_cache_shardings``: T
-    over ``"model"``, since KV heads rarely split 16 ways) and computes
-    the same numbers."""
+    ``tp_assemble_cache`` puts one back together).
+
+    ``context``: on a mesh, the reference's layout instead
+    (``launch/dryrun.py`` ``_cache_shardings``,
+    ``distributed.sharding.cache_layout``): the self-attention KV leaves
+    hold this rank's block ``T/c`` of the time axis over the ``c`` ranks
+    of the axes that carry it (``"model"``, or the data axes and
+    ``"model"`` where the batch does not split over the data axes), with
+    every KV head where ``T`` is over ``"model"``; the batch's ``B/D`` rows
+    where ``D`` divides it, else all ``B`` on every data rank (the mamba
+    leaves and ``cross_kv`` too, which keep their ``Di`` and head split).
+    ``sharding.cp_local_cache`` cuts a whole cache so,
+    ``cp_assemble_cache`` puts one back together; :func:`decode_step`
+    reads it with ``cp=``."""
     mesh = mesh if mesh is not None else current_mesh()
+    dev = resolve_device(device)
+    if mesh is not None and context:
+        # the whole tree as storage-less meta tensors (``empty``: no
+        # operation for the dry run's counter), this rank's block shapes
+        whole = _cache_tree(cfg, bsz, cache_len, torch.empty, "meta")
+        return tree_map(lambda n, t: torch.zeros(n, dtype=t.dtype,
+                                                 device=dev),
+                        cp_local_shapes(whole, cfg, mesh), whole)
     if mesh is not None:
         D = data_size(mesh)
         if bsz % D:
@@ -363,23 +383,29 @@ def init_cache(cfg: ModelConfig, bsz: int, cache_len: int,
                              f"{D} data ranks")
         cfg = tp_local_config(cfg, model_size(mesh), expert_axis_size(mesh))
         bsz //= D
-    dev = resolve_device(device)
+    return _cache_tree(cfg, bsz, cache_len, torch.zeros, dev)
+
+
+def _cache_tree(cfg: ModelConfig, bsz: int, cache_len: int, new,
+                device) -> dict:
+    """:func:`init_cache`'s tree of ``cfg``'s shapes, each leaf made by
+    ``new(shape, dtype=..., device=device)``."""
     dt = torch_dtype(cfg.dtype)
     out = {}
     for name, kind, n, inner in _plan(cfg):
         if kind == "enc":
             continue
         lead = (n, inner) if inner else (n,)
-        out[name] = {k: torch.zeros(lead + tuple(s.shape), dtype=s.dtype,
-                                    device=dev)
+        out[name] = {k: new(lead + tuple(s.shape), dtype=s.dtype,
+                            device=device)
                      for k, s in B.layer_cache_shapes(
                          cfg, kind, bsz, cache_len, dt).items()}
     if cfg.family in ("encdec", "vlm"):
         n, T = (cfg.n_layers, cfg.enc_seq) if cfg.family == "encdec" \
             else (cfg.n_layers // cfg.cross_every, cfg.vis_seq)
         shape = (n, bsz, T, cfg.n_kv_heads, cfg.head_dim)
-        out["cross_kv"] = {"k": torch.zeros(shape, dtype=dt, device=dev),
-                           "v": torch.zeros(shape, dtype=dt, device=dev)}
+        out["cross_kv"] = {"k": new(shape, dtype=dt, device=device),
+                           "v": new(shape, dtype=dt, device=device)}
     return out
 
 
@@ -391,7 +417,7 @@ def cache_shapes(cfg: ModelConfig, bsz: int, cache_len: int) -> dict:
 
 
 def decode_step(params: dict, cfg: ModelConfig, cache: dict,
-                batch: dict, tp=None, ep=None, dp=None) -> tuple:
+                batch: dict, tp=None, ep=None, dp=None, cp=None) -> tuple:
     """One token for every sequence against the cache.
 
     batch = {"tokens": (B, 1), "cache_index": () or (B,)} — returns
@@ -412,7 +438,17 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     ``E/S`` experts × ``d_ff/m``, and the ``B`` rows of this data rank
     (alike on its expert and model ranks) are padded to a multiple of the
     expert axis inside the round.  ``dp``: the data-axis ``Collectives``
-    when ``batch`` is this data rank's rows (as in :func:`forward`)."""
+    when ``batch`` is this data rank's rows (as in :func:`forward`).
+
+    ``cp``: the ``Collectives`` over the mesh axes that carry the
+    self-attention caches' time axis (context parallelism: ``cache`` from
+    ``init_cache(..., context=True)``, ``comm.context_comm`` of its
+    layout's time axes).  Each rank attends over its block of ``T``, the
+    partial softmax sums combined over ``cp``, and writes the new token's
+    K/V only where its block holds the position
+    (:func:`~repro_torch.models.blocks.layer_decode_apply`); ``batch`` is
+    this data rank's rows where the batch splits over the data axes, else
+    every row."""
     if tp is None:
         tp = model_comm(current_mesh())
     if ep is None:
@@ -426,7 +462,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
             for j in range(_n_layers(gp)):
                 x, _ = B.layer_decode_apply(_layer(gp, j), cfg, x,
                                             _layer(gc, j), ci, "dense",
-                                            tp=tp, ep=ep, dp=dp)
+                                            tp=tp, ep=ep, dp=dp, cp=cp)
             x, _ = B.layer_decode_apply(
                 _layer(params["cross_layers"], gi), cfg, x, {}, ci, "cross",
                 ctx_kv=_layer(cache["cross_kv"], gi), tp=tp, ep=ep, dp=dp)
@@ -436,14 +472,14 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
             x, _ = B.layer_decode_apply(
                 _layer(stack, i), cfg, x, _layer(cache["dec_layers"], i), ci,
                 "dec", ctx_kv=_layer(cache["cross_kv"], i), tp=tp, ep=ep,
-                dp=dp)
+                dp=dp, cp=cp)
     else:
         kind = _plan(cfg)[0][1]
         stack = params["layers"]
         for i in range(_n_layers(stack)):
             x, _ = B.layer_decode_apply(_layer(stack, i), cfg, x,
                                         _layer(cache["layers"], i), ci, kind,
-                                        tp=tp, ep=ep, dp=dp)
+                                        tp=tp, ep=ep, dp=dp, cp=cp)
     x = L.norm_apply(params["final_norm"], x, cfg.norm)
     return shard_logits((copy_to_tp(x, tp) @ _head(params, cfg))[:, 0]), \
         cache

@@ -207,15 +207,16 @@ def moe_apply(p: dict, cfg, x: torch.Tensor,
     (``keep_block_grad``); the experts' partial products are
     reduce-scattered, the round's whole result sliced.
 
-    ``dp`` (a data-axis ``Collectives``; the EP round ignores it): ``x``
-    is data rank ``r``'s rows ``[r·T, (r+1)·T)`` of a batch of ``D·T``
-    tokens, which the reference routes as one array.  Where ``D > 1``
-    capacity is sized over ``D·T`` tokens and every pair takes its
-    position among the whole batch's (choice-major, then rank by rank),
-    from the ``(K, E)`` pair counts of every rank, all-gathered once per
-    round: one all-gather for ``lc``, two for ``dlbc`` (its round-1 load
-    and residual come from the first).  ``return_stats`` then reports the
-    whole batch's drops."""
+    ``dp`` (a data-axis ``Collectives``): ``x`` is data rank ``r``'s rows
+    ``[r·T, (r+1)·T)`` of a batch of ``D·T`` tokens, which the reference
+    routes as one array.  The EP round gathers every data rank's rows and
+    runs on the whole batch (``ep.dispatch.ep_dispatch_combine``).
+    Otherwise, where ``D > 1`` capacity is sized over ``D·T`` tokens and
+    every pair takes its position among the whole batch's (choice-major,
+    then rank by rank), from the ``(K, E)`` pair counts of every rank,
+    all-gathered once per round: one all-gather for ``lc``, two for
+    ``dlbc`` (its round-1 load and residual come from the first).
+    ``return_stats`` then reports the whole batch's drops."""
     orig_shape = x.shape
     # routing and the EP round compute alike on every model rank
     xr = enter_tp(x, tp, split=False, gathered=sp).reshape(-1, x.shape[-1])
@@ -224,25 +225,18 @@ def moe_apply(p: dict, cfg, x: torch.Tensor,
     E, K = cfg.n_experts, cfg.top_k
     if ep is None:
         ep = expert_comm(current_mesh(), cfg)
+    if dp is not None and dp.size == 1:
+        dp = None
     if ep is not None:
-        # Expert-parallel all-to-all dispatch (repro_torch.ep).  A token
-        # count not divisible by S is zero-padded up to the next multiple
-        # and sliced back.
+        # Expert-parallel all-to-all dispatch (repro_torch.ep) over the
+        # whole batch's rows (every data rank's, gathered over ``dp``)
         from ..ep.dispatch import ep_dispatch_combine
-        pad = (-T) % ep.size
-        xp = F.pad(xr, (0, 0, 0, pad)) if pad else xr
-        out = ep_dispatch_combine(p, cfg, xp, comm=ep, tp=tp,
+        out = ep_dispatch_combine(p, cfg, xr, comm=ep, tp=tp, dp=dp,
                                   use_kernel=use_kernel,
                                   return_stats=return_stats)
         y, ep_stats = out if return_stats else (out, None)
-        y = leave_tp((y[:T] if pad else y).reshape(orig_shape), tp,
-                     split=False, sp=sp)
-        if return_stats:
-            ep_stats["padded_tokens"] = pad
-            return y, ep_stats
-        return y
-    if dp is not None and dp.size == 1:
-        dp = None
+        y = leave_tp(y.reshape(orig_shape), tp, split=False, sp=sp)
+        return (y, ep_stats) if return_stats else y
     D = dp.size if dp is not None else 1
     C = capacity(D * T, E, K, cfg.moe_capacity_factor)
     cap = ExpertCapacityProvider(E, C)

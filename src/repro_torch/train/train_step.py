@@ -600,7 +600,9 @@ def build_prefill_step(cfg: ModelConfig, scfg: StepConfig):
 
 def build_decode_step(cfg: ModelConfig):
     @torch.no_grad()
-    def serve_step(params, cache, batch, dp=None):
-        return MDL.decode_step(params, cfg, cache, batch, dp=dp)
+    def serve_step(params, cache, batch, dp=None, cp=None):
+        """``dp`` and ``cp`` (the context group of a context-parallel
+        cache) as in ``MDL.decode_step``."""
+        return MDL.decode_step(params, cfg, cache, batch, dp=dp, cp=cp)
 
     return serve_step

@@ -10,7 +10,9 @@ roofline (``repro_torch.roofline``) and the pieces it traces through.
   / reduce-scatters / all-reduces, measured on the card).
 * **Cells** — one cell per family on both production meshes traces with
   status ``ok``, rank 0's argument bytes exact, CUDA never initialised;
-  the CLI writes one record per cell, ``ok`` or ``skipped`` as
+  a decode cell's cache bytes per rank are the reference's per-device
+  bytes (``_cache_shardings``: the context-parallel layout); the CLI
+  writes one record per cell, ``ok`` or ``skipped`` as
   ``shape_applicable`` says; ``reanalyze`` recomputes a record's roofline
   from its stored cost.
 * **Pieces** — the kernel wrappers on meta tensors report their cost and
@@ -43,6 +45,7 @@ from repro_torch.tree import tree_leaves  # noqa: E402
 
 pytest.importorskip("jax")
 import test_torch_sp as SP  # noqa: E402  (the gloo tests' pins)
+from test_torch_cp import _paths, _reference_shardings  # noqa: E402
 
 #: one arch per family
 FAMILY_ARCHS = ("phi3-mini-3.8b", "granite-moe-1b-a400m", "falcon-mamba-7b",
@@ -140,7 +143,8 @@ def test_family_cell_traces_on_meta(arch, multi_pod):
     assert mem["params_bytes"] == sum(t.numel() * t.element_size()
                                       for t in tree_leaves(local))
     mesh = production_mesh_shape(multi_pod=multi_pod)
-    cache = TM.init_cache(cfg, 128, 32768, device="meta", mesh=mesh)
+    cache = TM.init_cache(cfg, 128, 32768, device="meta", mesh=mesh,
+                          context=True)
     assert mem["cache_bytes"] == sum(t.numel() * t.element_size()
                                      for t in tree_leaves(cache))
     assert rec["roofline"]["chips"] == rec["chips"]
@@ -150,11 +154,62 @@ def test_family_cell_traces_on_meta(arch, multi_pod):
     assert not torch.cuda.is_initialized()
 
 
+def _reference_cache_bytes(arch, shape, multi_pod):
+    """The reference's decode cache bytes per device: each leaf's shard
+    shape under ``_cache_shardings`` on an ``AbstractMesh`` (no devices),
+    ``cross_kv`` apart."""
+    import jax.numpy as jnp
+    from repro.configs import get_config as r_get_config
+    from repro.models import model as JM
+
+    cache_shardings, AbstractMesh = _reference_shardings()
+    mesh = production_mesh_shape(multi_pod=multi_pod)
+    amesh = AbstractMesh(tuple(mesh.shape), tuple(mesh.mesh_dim_names))
+    sh = SHAPES[shape]
+    cfg = r_get_config(arch)
+    shapes = JM.cache_shapes(cfg, sh.global_batch, sh.seq_len)
+    specs = cache_shardings(shapes, amesh, cfg)
+    out = {"self": 0, "cross_kv": 0}
+    for (p, leaf), (_, spec) in zip(_paths(shapes), _paths(specs)):
+        n = 1
+        for d in spec.shard_shape(leaf.shape):
+            n *= d
+        out["cross_kv" if "cross_kv" in p else "self"] += \
+            n * jnp.dtype(leaf.dtype).itemsize
+    return out
+
+
+@pytest.mark.parametrize("arch,shape,multi_pod,kv_bytes", [
+    ("minitron-4b", "decode_32k", False, 2_147_483_648),
+    ("granite-moe-1b-a400m", "decode_32k", True, 402_653_184),
+    ("mixtral-8x7b", "long_500k", False, 2_097_152),
+])
+def test_decode_cell_cache_bytes_equal_the_reference(arch, shape, multi_pod,
+                                                     kv_bytes):
+    """A decode cell's cache bytes per rank are the reference's per-device
+    bytes: minitron-4b's ``decode_32k`` on ``16x16`` (24 / 8 heads do not
+    split 16 ways: 2.148 GB, not the 32.2 of every KV head on every model
+    rank), granite's on ``2x16x16`` (4 rows per rank of 32 data ranks,
+    0.403 GB) and mixtral's ``long_500k`` (B 1, its
+    4096-slot ring over all 256 ranks: 2.1 MB, not 0.537 GB).  The three
+    traces take about 7 s on one CPU process.  No layout note: only
+    ``cross_kv`` is laid out otherwise."""
+    rec = DR.run_cell(arch, shape, multi_pod=multi_pod, verbose=False)
+    assert rec["status"] == "ok", rec
+    ref = _reference_cache_bytes(arch, shape, multi_pod)
+    assert ref["cross_kv"] == 0
+    assert rec["memory"]["cache_bytes"] == ref["self"] == kv_bytes
+    assert rec["layout"] == ""
+    assert not torch.cuda.is_initialized()
+
+
 def test_cli_writes_one_record_per_cell(tmp_path):
     """``main`` over two archs and ``long_500k`` on both meshes: falcon's
-    cells ``ok`` with its whole-batch layout recorded (B 1 over 16 or 32
-    data ranks), granite's ``skipped`` with ``shape_applicable``'s
-    reason; one JSON file per cell; CUDA never initialised."""
+    cells ``ok``, its cache bytes the reference's per device (B 1 over 16
+    or 32 data ranks: the mamba leaves whole in B, ``Di`` over
+    ``"model"``) and no layout note, granite's ``skipped`` with
+    ``shape_applicable``'s reason; one JSON file per cell; CUDA never
+    initialised."""
     assert DR.main(["--arch", "falcon-mamba-7b", "--shape", "long_500k",
                     "--both-meshes", "--out", str(tmp_path)]) == 0
     assert DR.main(["--arch", "granite-moe-1b-a400m", "--shape",
@@ -169,7 +224,9 @@ def test_cli_writes_one_record_per_cell(tmp_path):
         assert rec["status"] == ("ok" if ok else "skipped")
         assert rec["reason"] == reason
         if ok:
-            assert "whole batch" in rec["layout"]
+            assert rec["layout"] == ""
+            assert rec["memory"]["cache_bytes"] == _reference_cache_bytes(
+                rec["arch"], rec["shape"], rec["mesh"] == "2x16x16")["self"]
     assert not torch.cuda.is_initialized()
 
 

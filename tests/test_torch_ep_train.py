@@ -16,6 +16,12 @@ fp32, ``expert_parallel`` on.
   plain tensor permutation within 1e-6.  Forward and backward issue
   exactly two all-to-alls and one all-gather each; the stats all-reduce
   only when asked for.
+* **The round on a data axis, 4 ranks** — at ``(expert 2, data 2)`` the
+  round gathers both data ranks' token rows and runs on the whole batch
+  (fault N, repaired): the ranks' rows put together equal the two-shard
+  oracle over the whole matrix under pressure and the single-host port
+  and the reference at ample capacity; one data-axis all-gather forward,
+  none backward.
 * **The train step** — each policy on ``(expert 2, data 1)``, and
   ``afe`` / ``afe_bucket`` on ``(expert 2, data 2)`` (4 ranks): the
   params after 2 steps, gathered whole, within 2e-5 of the mesh-free port
@@ -129,26 +135,29 @@ SCRIPT = textwrap.dedent("""
         return tp_local_params({"moe": p}, cfg, rank, 2, "expert")["moe"]
 
 
-    def round_grads(cfg, p, x, r, ep, *, stats=False):
+    def round_grads(cfg, p, x, r, ep, *, stats=False, dp=None):
         \"\"\"The EP round's output and gradients (x, router, this rank's
         experts) against the cotangent ``r``, with the expert group's
-        collectives counted apart for the forward and the backward.\"\"\"
+        collectives (and the data group's, with ``dp``) counted apart for
+        the forward and the backward.\"\"\"
         from repro_torch.ep.dispatch import ep_dispatch_combine
 
         local = local_moe(p, cfg, ep.rank)
         leaves = {k: v.clone().requires_grad_(True)
                   for k, v in local.items()}
         xg = x.clone().requires_grad_(True)
-        out = ep_dispatch_combine(leaves, cfg, xg, comm=ep,
+        out = ep_dispatch_combine(leaves, cfg, xg, comm=ep, dp=dp,
                                   return_stats=stats)
         y, st = out if stats else (out, None)
         fwd = dict(ep.counts)
+        dp_fwd = dict(dp.counts) if dp is not None else {}
         g = torch.autograd.grad((y * r).sum(), [xg] + [
             leaves[k] for k in ("router", "w1", "w3", "w2")])
         bwd = {k: ep.counts[k] - fwd[k] for k in fwd}
+        dp_bwd = {k: dp.counts[k] - dp_fwd[k] for k in dp_fwd}
         return {"y": y.detach().numpy().tolist(),
                 "grads": [t.numpy().tolist() for t in g],
-                "fwd": fwd, "bwd": bwd,
+                "fwd": fwd, "bwd": bwd, "dp_fwd": dp_fwd, "dp_bwd": dp_bwd,
                 "stats": {k: float(v) for k, v in (st or {}).items()}}
 
 
@@ -343,15 +352,21 @@ SCRIPT = textwrap.dedent("""
         mesh = make_test_mesh(data=2, model=1, expert=2, device_type="cpu")
         out = {"steps": {pol: policy_steps(pol, src, mesh)
                          for pol in WIDE}}
-        # the round under pressure on this data rank's half of the tokens
+        # the round on this data rank's half of the tokens, at ample
+        # capacity and under pressure: the rows of both data ranks
+        # gathered over the data group, this rank's rows of the result
         from repro_torch.distributed.comm import Collectives
-        cfg, p, x, r = moe_case(True)
         d = dist.get_rank(mesh.get_group("data"))
-        n = x.shape[0] // 2
-        out["data_round"] = round_grads(
-            cfg, p, x[d * n:(d + 1) * n], r[d * n:(d + 1) * n],
-            Collectives(mesh.get_group("expert")))
+        out["data_round"] = {}
+        for name, hot in (("ample", False), ("pressure", True)):
+            cfg, p, x, r = moe_case(hot)
+            n = x.shape[0] // 2
+            out["data_round"][name] = round_grads(
+                cfg, p, x[d * n:(d + 1) * n], r[d * n:(d + 1) * n],
+                Collectives(mesh.get_group("expert")),
+                dp=Collectives(mesh.get_group("data")))
         out["data_rank"] = d
+        out["expert_rank"] = dist.get_rank(mesh.get_group("expert"))
         return out
 
 
@@ -490,27 +505,49 @@ SCRIPT = textwrap.dedent("""
                     "collectives": [x["collectives"] for x in ranks],
                     "ep_collectives": [x["ep_collectives"] for x in ranks]}
         result["steps"] = steps
-        # (expert 2, data 2) under pressure: each data rank's round
-        # against the two-shard oracle over that rank's rows, and the
-        # ranks' rows together against the oracle over the whole matrix
-        # (the reference's layout: its shard_map hands each expert shard
-        # T/S rows of the global batch)
-        cfg, p, x, r = moe_case(True)
-        n = x.shape[0] // 2
-        y = [None, None]
-        per_rank = 0.0
-        for k in range(4):
-            d = four[k]["data_rank"]
-            want, _ = shard_oracle(cfg, p, x[d * n:(d + 1) * n],
-                                   r[d * n:(d + 1) * n])
-            got = np.asarray(four[k]["data_round"]["y"])
-            per_rank = max(per_rank, diff(got, want.numpy()))
-            y[d] = got
-        whole, _ = shard_oracle(cfg, p, x, r)
-        result["data_round"] = {
-            "per_rank_err": per_rank,
-            "whole_err": diff(np.concatenate(y), whole.numpy()),
-            "scale": float(whole.abs().max())}
+        # (expert 2, data 2): the data ranks' rows of the round put
+        # together against the round over the whole matrix (the
+        # reference's layout: its shard_map hands each expert shard T/S
+        # rows of the global batch) — under pressure the two-shard oracle
+        # over all the rows, at ample capacity the single-host port; the
+        # gradients assembled: x's rows by data rank, the router's summed
+        # over all four ranks, each expert rank's experts summed over the
+        # data ranks
+        result["data_round"] = {}
+        for name, hot in (("ample", False), ("pressure", True)):
+            cfg, p, x, r = moe_case(hot)
+            at = {(four[k]["expert_rank"], four[k]["data_rank"]):
+                  four[k]["data_round"][name] for k in range(4)}
+            arr = lambda s, d, i: np.asarray(at[(s, d)]["grads"][i])
+            y = np.concatenate([np.asarray(at[(0, d)]["y"])
+                                for d in range(2)])
+            whole = [np.concatenate([arr(0, d, 0) for d in range(2)]),
+                     sum(arr(s, d, 1) for s in range(2) for d in range(2))]
+            whole += [np.concatenate([arr(s, 0, i) + arr(s, 1, i)
+                                      for s in range(2)]) for i in (2, 3, 4)]
+            if hot:
+                y_want, g_want = shard_oracle(cfg, p, x, r)
+            else:
+                host = dataclasses.replace(cfg, expert_parallel=False)
+                ins = [t.clone().requires_grad_(True)
+                       for t in (x, p["router"], p["w1"], p["w3"], p["w2"])]
+                y_want = MOE.moe_apply(dict(zip(
+                    ("router", "w1", "w3", "w2"), ins[1:])), host, ins[0])
+                g_want = torch.autograd.grad((y_want * r).sum(), ins)
+                np.savez(os.path.join(tmp, "data_round_grads.npz"), *whole)
+            result["data_round"][name] = {
+                "whole_err": diff(y, y_want.detach().numpy()),
+                "expert_ranks_agree": all(
+                    np.array_equal(at[(0, d)]["y"], at[(1, d)]["y"]) and
+                    np.array_equal(arr(0, d, 0), arr(1, d, 0))
+                    for d in range(2)),
+                "grad_err": diff(whole, [t.numpy() for t in g_want]),
+                "scale": float(y_want.abs().max()),
+                "grad_scale": max(float(t.abs().max()) for t in g_want),
+                "fwd": [g["fwd"] for g in at.values()],
+                "bwd": [g["bwd"] for g in at.values()],
+                "dp_fwd": [g["dp_fwd"] for g in at.values()],
+                "dp_bwd": [g["dp_bwd"] for g in at.values()]}
         from repro_torch.ckpt.checkpoint import CheckpointManager
         from repro_torch.tree import tree_leaves
         _, back = CheckpointManager(os.path.join(tmp, "ckpt_ep")).restore(
@@ -623,9 +660,10 @@ def ep_results(reference, tmp_path_factory):
                 with np.load(tmp / f"params_{key}.npz") as z:
                     res["steps"][key]["params"] = [
                         z[f"arr_{i}"] for i in range(len(z.files))]
-            with np.load(tmp / "round_grads.npz") as z:
-                res["round_grads"] = [z[f"arr_{i}"]
-                                      for i in range(len(z.files))]
+            for key, name in (("round_grads", "round_grads"),
+                              ("data_round_grads", "data_round_grads")):
+                with np.load(tmp / f"{name}.npz") as z:
+                    res[key] = [z[f"arr_{i}"] for i in range(len(z.files))]
             return res
     raise AssertionError("no RESULT line:\n" + out.stdout)
 
@@ -648,20 +686,50 @@ def test_round_grads_match_single_host(ep_results):
     assert r["stats"] == {}
 
 
-def test_data2_round_under_pressure_takes_the_data_ranks_rows(ep_results):
+def _data_round_counts(r):
+    """The data round's collectives on each of the 4 ranks: the expert
+    group's as on a data axis of 1 (two all-to-alls and the output
+    all-gather each way), the data group's one all-gather of the token
+    rows forward and nothing backward (the gather's backward is a
+    slice)."""
+    assert r["fwd"] == [_counts(all_to_all=2, all_gather=1)] * 4
+    assert r["bwd"] == [_counts(all_to_all=2, all_gather=1)] * 4
+    assert r["dp_fwd"] == [_counts(all_gather=1)] * 4
+    assert r["dp_bwd"] == [_counts()] * 4
+
+
+def test_data2_round_under_pressure_takes_the_whole_batch(ep_results):
     """At ``(expert 2, data 2)`` under pressure (a hot router, capacity
-    factor 1) each data rank's EP round equals the two-shard oracle over
-    that rank's rows within 1e-6: lanes, lane capacity and expert capacity
-    over its ``T/D`` tokens.  The reference's ``shard_map`` hands each
-    expert shard ``T/S`` rows of the whole batch instead (it cannot run
-    here, ROADMAP Queue 3 B; the oracle over the whole token matrix stands
-    for it), and under pressure that drops other pairs: ROADMAP fault N,
-    which the gathered pair counts of fault M's repair cannot mend, since
-    the lanes themselves differ.  When the round takes the whole batch's
-    rows the second check becomes equality."""
-    r = ep_results["data_round"]
-    assert r["per_rank_err"] <= 1e-6, r
-    assert r["whole_err"] > 1e-3 * r["scale"], r
+    factor 1) the data ranks' rows of the EP round, put together, equal
+    the two-shard oracle over the whole token matrix: the output within
+    1e-6, the gradients within 1e-6 of their largest value (the data
+    ranks' partial weight gradients are summed in another order).  Each
+    expert shard packs ``T/S`` rows of the whole batch into lanes of
+    ``lane_capacity(T/S)`` against expert capacity
+    ``capacity(T)``, as the reference's ``shard_map`` does (it cannot run
+    here, ROADMAP Queue 3 B; the oracle stands for it).  Before fault N's
+    repair each data rank's round took only its ``T/D`` rows, and the
+    whole-matrix oracle differed by 1.4653 of 4.0532."""
+    r = ep_results["data_round"]["pressure"]
+    assert r["whole_err"] <= 1e-6, r
+    assert r["grad_err"] <= 1e-6 * r["grad_scale"], r
+    assert r["expert_ranks_agree"]
+    _data_round_counts(r)
+
+
+def test_data2_round_at_ample_capacity_matches_reference(ep_results,
+                                                          reference):
+    """At ample capacity the ``(expert 2, data 2)`` round, rows and
+    gradients assembled over the four ranks, equals the single-host port
+    and the reference's ``jax.grad`` of its single-host ``moe_apply``
+    within 2e-5, as the ``(expert 2, data 1)`` round does."""
+    r = ep_results["data_round"]["ample"]
+    assert r["whole_err"] <= 2e-5 and r["grad_err"] <= 2e-5, r
+    assert r["expert_ranks_agree"]
+    _data_round_counts(r)
+    for got, want in zip(ep_results["data_round_grads"],
+                         reference["round_grads"]):
+        np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)
 
 
 def test_round_grads_match_reference(ep_results, reference):
@@ -765,9 +833,15 @@ def _ep_collectives(n_layers):
 
 @pytest.mark.parametrize("case", STEP_CASES)
 def test_step_collective_counts(ep_results, case):
+    """The data and expert axes' collectives per step, exactly.  On
+    ``(expert 2, data 2)`` the EP round gathers the token rows of both
+    data ranks once per MoE layer and forward, remat's recompute included
+    (fault N's repair), on top of the policy's own."""
     r = ep_results["steps"][case]
     data = 1 if case.startswith("e2d1") else 2
     want = _data_collectives(case.split("_", 1)[1], data)
+    if data > 1:
+        want["all_gather"] += 2 * MICRO * _t_cfg().n_layers
     ep = _ep_collectives(_t_cfg().n_layers)
     for counts, epc in zip(r["collectives"], r["ep_collectives"]):
         assert counts == [want] * STEPS
