@@ -1,4 +1,4 @@
-"""Low-overhead span/instant tracing for the DCAFE runtime.
+"""Low-overhead span/instant tracing for the port's DCAFE runtime.
 
 The paper's evaluation is *dynamic* evidence — #async/#finish counts and
 wall-time distributions.  ``SchedTelemetry`` reproduces the counts but
@@ -8,7 +8,7 @@ compiled into every hot path:
 * **Default-off costs ~nothing.**  Every emit site starts with one read
   of the module flag ``_ENABLED`` (a plain global: no lock, no attribute
   chain).  ``trace_span`` returns a shared no-op context manager when
-  disabled — no allocation, no clock read.
+  disabled — no allocation, no clock read, no profiler range.
 * **No locks or allocation churn on the hot path when enabled.**  Each
   thread owns a bounded ring (:class:`Ring`) reached through a
   ``threading.local``; an event is one tuple append (or slot store once
@@ -17,10 +17,15 @@ compiled into every hot path:
 * **Bounded memory.**  Rings hold at most ``capacity`` events; older
   events are overwritten and counted in ``Ring.dropped`` — a tracer must
   never be the thing that OOMs the job it is observing.
+* **One clock with the device trace.**  While ``torch.profiler`` records,
+  an enabled span also opens a ``record_function`` range named
+  ``repro_torch.<cat>.<name>`` (closed on exit), so the profiler's trace
+  holds the program's phases on its own clock beside the device ops.
+  The rings keep ``perf_counter_ns``, which the Chrome export reads.
 
 Event vocabulary (what the exporter and the CI conservation gate rely
 on): *instants* are emitted exactly where the matching
-:class:`~repro.sched.telemetry.SchedTelemetry` counter is bumped —
+:class:`~repro_torch.sched.telemetry.SchedTelemetry` counter is bumped —
 ``spawn``/``join``/``steal``/``split``/``complete``/``error``/``admit``
 (each carries an integer weight ``n`` so batched bumps stay one event)
 — and *spans* mark occupancy and stalls: ``cat="worker"`` spans
@@ -41,6 +46,9 @@ import os
 import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
+
+from torch.autograd import _profiler_enabled
+from torch.autograd.profiler import record_function
 
 perf_counter_ns = time.perf_counter_ns
 
@@ -169,18 +177,23 @@ def instant(cat: str, name: str, n: int = 1,
 
 
 def complete_span(cat: str, name: str, t0_ns: int,
-                  args: Optional[Dict[str, Any]] = None):
-    """Record a span that started at ``t0_ns`` and ends now — for sites
-    that only want the event on one outcome (e.g. a *successful* steal:
-    the caller reads the clock up front, and failed scans emit nothing).
-    """
+                  args: Optional[Dict[str, Any]] = None,
+                  end_ns: Optional[int] = None):
+    """Record a span that started at ``t0_ns`` and ends now (or at
+    ``end_ns``) — for sites that only want the event on one outcome
+    (e.g. a *successful* steal: the caller reads the clock up front, and
+    failed scans emit nothing) or that stamp both ends themselves (a
+    request's queue wait).  Such a span opens no profiler range."""
     if not _ENABLED:
+        return
+    if end_ns is not None:
+        _ring().emit(("X", t0_ns, end_ns - t0_ns, cat, name, 1, args))
         return
     _ring().emit(("X", t0_ns, perf_counter_ns() - t0_ns, cat, name, 1, args))
 
 
 class _Span:
-    __slots__ = ("cat", "name", "args", "t0", "_ring")
+    __slots__ = ("cat", "name", "args", "t0", "_ring", "_range")
 
     def __init__(self, cat: str, name: str, args):
         self.cat = cat
@@ -190,11 +203,18 @@ class _Span:
     def __enter__(self):
         r = _ring()
         self._ring = r
+        self._range = None
+        if _profiler_enabled():
+            self._range = record_function(f"repro_torch.{self.cat}."
+                                          f"{self.name}")
+            self._range.__enter__()
         self.t0 = perf_counter_ns()
         r.open_spans.append(self)
         return self
 
     def __exit__(self, *exc):
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
         # De-register from the ring we registered on (a clear() between
         # enter and exit leaves a stale ring — removal is then a no-op on
         # a discarded object, which is the right outcome: cleared spans

@@ -151,6 +151,12 @@ class Request:
     #: failure — compared against ``RetryPolicy.attempts`` before a
     #: poisoned request is requeued instead of counted ``failed``
     attempts: int = 0
+    #: wall-clock stamps (``perf_counter_ns``), always on, one per
+    #: transition: queued (``submit``, or its requeue after a failure),
+    #: placed in a slot, and its first generated token on the host
+    submit_ns: Optional[int] = None
+    placed_ns: Optional[int] = None
+    first_token_ns: Optional[int] = None
 
 
 @dataclass
@@ -417,6 +423,7 @@ class ContinuousBatcher:
                 f"family={self.cfg.family!r} "
                 f"sliding_window={self.cfg.sliding_window} is limited "
                 f"to single-token prompts")
+        req.submit_ns = obs.perf_counter_ns()
         if self.registry is not None:
             self.registry.submit(req, req.tenant)
             if req.tenant not in self.tenant_stats:
@@ -446,6 +453,10 @@ class ContinuousBatcher:
 
     def _place(self, slot: int, req: Request, now: int):
         req.start_step = now
+        req.placed_ns = obs.perf_counter_ns()
+        if obs.enabled():
+            obs.complete_span("serve", "queue", req.submit_ns,
+                              {"rid": req.rid}, end_ns=req.placed_ns)
         wait = now - req.arrive_step
         self.stats.queue_waits.append(wait)
         if self.registry is not None:
@@ -525,6 +536,8 @@ class ContinuousBatcher:
             r.arrive_step = now
             r.start_step = None
             r.done_step = None
+            r.submit_ns = obs.perf_counter_ns()
+            r.placed_ns = r.first_token_ns = None
             r.tokens = []
             if self.registry is not None:
                 self.registry.submit(r, r.tenant)
@@ -582,7 +595,8 @@ class ContinuousBatcher:
                 counts[i] = c
             with obs.trace_span("serve", "prefill_chunk",
                                 {"slots": len(chunk_of),
-                                 "tokens": int(sum(chunk_of.values()))}
+                                 "tokens": int(sum(chunk_of.values())),
+                                 "lanes": self.n_slots * self.prefill_chunk}
                                 if obs.enabled() else None):
                 _, self.cache = self._launch(MDL.prefill_step, {
                     "tokens": tokens, "cache_index": self.slot_pos,
@@ -608,7 +622,9 @@ class ContinuousBatcher:
         # complete, so a trace shows where a step's wall time goes
         # (admission arithmetic vs span prefill vs device step vs
         # completion bookkeeping) and slot occupancy can be read against
-        # the admit/join/prefill_chunk instants.
+        # the admit/join/prefill_chunk instants.  Each request adds its
+        # own queue (submit → placed) and prefill (placed → first token
+        # on the host) spans, args {"rid": rid}, from its stamps.
         with obs.trace_span("serve", "refill"):
             self._admit(now)
         active = [i for i, r in enumerate(self.slot_req) if r is not None]
@@ -658,6 +674,7 @@ class ContinuousBatcher:
                 logits, self.cache = self._launch(MDL.decode_step, {
                     "tokens": tokens, "cache_index": self.slot_pos})
                 nxt = self._next_tokens(logits)
+            host_ns = obs.perf_counter_ns()
         with obs.trace_span("serve", "complete"):
             plan = faults.active()
             for i in decoding:
@@ -672,6 +689,11 @@ class ContinuousBatcher:
                         self._fail_request(i, now)
                         continue
                 r.tokens.append(int(nxt[i]))
+                if r.first_token_ns is None:
+                    r.first_token_ns = host_ns
+                    if obs.enabled():
+                        obs.complete_span("serve", "prefill", r.placed_ns,
+                                          {"rid": r.rid}, end_ns=host_ns)
                 self.slot_pos[i] += 1
                 # per-token decode latency in token units: 1 for the
                 # decode plus whatever prefill work shared the step

@@ -93,6 +93,7 @@ spawn/join counts per executed step.
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from dataclasses import dataclass
 
 import torch
@@ -106,6 +107,7 @@ from ..distributed.sharding import (
     tp_gather_params, tp_local_params, tp_owned,
 )
 from ..models import model as MDL
+from ..obs import trace as obs
 from ..sched import FixedCapacity, get_policy
 from ..tree import tree_leaves, tree_unflatten
 from .optimizer import AdamWConfig, adamw_update
@@ -425,81 +427,96 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
         views = [p.detach().requires_grad_(True) for p in leaves]
         vparams = tree_unflatten(params, views)
         acc, loss_sum = None, 0.0
+        # obs phases (cat="train", args {"mb": i}): per microbatch
+        # forward → backward → accumulate (the last one with the
+        # division), then grad_sync where a sync runs, then optimizer
         for i in range(M):
             mb = {k: v[i * b + lo:i * b + hi] for k, v in batch.items()}
-            loss = MDL.loss_fn(vparams, cfg, mb, tp=tpc, ep=epc, dp=comm,
-                               **fwd_kw)
-            g = torch.autograd.grad(loss, views)
+            args = {"mb": i} if obs.enabled() else None
+            with obs.trace_span("train", "forward", args):
+                loss = MDL.loss_fn(vparams, cfg, mb, tp=tpc, ep=epc,
+                                   dp=comm, **fwd_kw)
+            with obs.trace_span("train", "backward", args):
+                g = torch.autograd.grad(loss, views)
             loss_sum = loss_sum + loss.detach()
             del loss
             if comm is not None and scfg.policy == "unopt":
                 # the join inside the loop: every microbatch all-reduced
-                g = [_mean(comm, x.float()) for x in g]
-            if acc is None:
-                acc = [x.float() for x in g]
-            else:
-                for a, x in zip(acc, g):
-                    a.add_(x.float())
+                with obs.trace_span("train", "grad_sync", args):
+                    g = [_mean(comm, x.float()) for x in g]
+            with obs.trace_span("train", "accumulate", args):
+                if acc is None:
+                    acc = [x.float() for x in g]
+                else:
+                    for a, x in zip(acc, g):
+                        a.add_(x.float())
+                if i == M - 1:
+                    for a in acc:
+                        a.div_(M)
             del g
-        for a in acc:
-            a.div_(M)
-        # the partial gradients of the router over the expert ranks and
-        # of the leaves that see one model rank's rows over the model
-        # ranks: one all-reduce per axis and step, with the step-end sync
-        if summed:
-            _sum_leaves(epc, acc, summed)
         tsummed = model_summed(batch)
-        if tsummed:
-            _sum_leaves(tpc, acc, tsummed)
+        with (obs.trace_span("train", "grad_sync")
+              if comm is not None or summed or tsummed else nullcontext()):
+            # the partial gradients of the router over the expert ranks
+            # and of the leaves that see one model rank's rows over the
+            # model ranks: one all-reduce per axis and step, with the
+            # step-end sync
+            if summed:
+                _sum_leaves(epc, acc, summed)
+            if tsummed:
+                _sum_leaves(tpc, acc, tsummed)
 
-        # --- step-end synchronisation per policy ------------------------
-        compress = scfg.grad_compress == "bf16"
-        if comm is None:
-            if scfg.policy == "afe_bucket":
-                flatten, unflatten = _bucketize(
-                    tree_unflatten(params, acc), scfg.n_buckets,
-                    policy=sched_pol, capacity=sched_cap)
-                buckets = flatten(acc)
-                del acc
-                if compress:
-                    buckets = [b.to(torch.bfloat16) for b in buckets]
-                acc = tree_leaves(unflatten([b.float() for b in buckets]))
-        elif scfg.policy == "lc":
-            acc = [_mean(comm, a) for a in acc]
-        elif scfg.policy == "afe":
-            acc = [_mean(comm, a) if d is None else
-                   _reduce_scatter(comm, [a], [d])[0]
-                   for a, d in zip(acc, dims)]
-        elif scfg.policy == "afe_bucket":
-            acc = _sync_buckets(comm, acc, dims, bins, compress)
+            # --- step-end synchronisation per policy --------------------
+            compress = scfg.grad_compress == "bf16"
+            if comm is None:
+                if scfg.policy == "afe_bucket":
+                    flatten, unflatten = _bucketize(
+                        tree_unflatten(params, acc), scfg.n_buckets,
+                        policy=sched_pol, capacity=sched_cap)
+                    buckets = flatten(acc)
+                    del acc
+                    if compress:
+                        buckets = [b.to(torch.bfloat16) for b in buckets]
+                    acc = tree_leaves(unflatten([b.float()
+                                                 for b in buckets]))
+            elif scfg.policy == "lc":
+                acc = [_mean(comm, a) for a in acc]
+            elif scfg.policy == "afe":
+                acc = [_mean(comm, a) if d is None else
+                       _reduce_scatter(comm, [a], [d])[0]
+                       for a, d in zip(acc, dims)]
+            elif scfg.policy == "afe_bucket":
+                acc = _sync_buckets(comm, acc, dims, bins, compress)
         grads = tree_unflatten(params, acc)
         del acc
 
-        if layout is None:
-            params, opt_state, metrics = adamw_update(
-                params, grads, opt_state, ocfg, split=splitc, owned=owned)
-        else:
-            # each rank updates its FSDP pieces, then the whole params are
-            # all-gathered: per leaf (afe) or per bucket and dtype
-            # (afe_bucket)
-            pieces = [p if d is None else layout.local(p.detach(), d)
-                      for p, d in zip(leaves, dims)]
-            _, opt_state, metrics = adamw_update(
-                tree_unflatten(params, pieces), grads, opt_state, ocfg,
-                comm=comm, sharded=[d is not None for d in dims],
-                split=splitc, owned=owned)
-            sharded = [i for i, d in enumerate(dims) if d is not None]
-            groups = [[i] for i in sharded] if scfg.policy == "afe" else \
-                [g for bin_ in bins
-                 for g in _dtype_groups([i for i in bin_ if dims[i]
-                                         is not None], leaves)]
-            with torch.no_grad():
-                for idx in groups:
-                    whole = _all_gather(comm, [pieces[i] for i in idx],
-                                        [dims[i] for i in idx],
-                                        [leaves[i].shape for i in idx])
-                    for i, w in zip(idx, whole):
-                        leaves[i].copy_(w)
+        with obs.trace_span("train", "optimizer"):
+            if layout is None:
+                params, opt_state, metrics = adamw_update(
+                    params, grads, opt_state, ocfg, split=splitc,
+                    owned=owned)
+            else:
+                # each rank updates its FSDP pieces, then the whole params
+                # are all-gathered: per leaf (afe) or per bucket and dtype
+                # (afe_bucket)
+                pieces = [p if d is None else layout.local(p.detach(), d)
+                          for p, d in zip(leaves, dims)]
+                _, opt_state, metrics = adamw_update(
+                    tree_unflatten(params, pieces), grads, opt_state, ocfg,
+                    comm=comm, sharded=[d is not None for d in dims],
+                    split=splitc, owned=owned)
+                sharded = [i for i, d in enumerate(dims) if d is not None]
+                groups = [[i] for i in sharded] if scfg.policy == "afe" \
+                    else [g for bin_ in bins
+                          for g in _dtype_groups([i for i in bin_ if dims[i]
+                                                  is not None], leaves)]
+                with torch.no_grad():
+                    for idx in groups:
+                        whole = _all_gather(comm, [pieces[i] for i in idx],
+                                            [dims[i] for i in idx],
+                                            [leaves[i].shape for i in idx])
+                        for i, w in zip(idx, whole):
+                            leaves[i].copy_(w)
         # beside the reference's metrics: the mean microbatch loss at the
         # params the step started from (free: the gradients needed it)
         metrics["loss"] = loss_sum / M
